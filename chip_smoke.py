@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives the
-port's main path: QT12 generation of fitted, evaluable ephemerides at
-N = 4096 through both kernels, and the bundled full_solar_system scene.
-Each phase prints one line; the line before the last is the kernels' JSON
-record and the last line is ``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the script exits nonzero and prints no result.  Without a
-CUDA device it exits nonzero at once.  It imports no JAX.
+Builds the port's four CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``
+(one ``nvcc`` per source, started together), holds each against its plain
+PyTorch version on the card, and drives the port's paths through them:
+
+* the main path, QT12 generation of fitted, evaluable ephemerides at
+  N = 4096 through kernels 1 and 2, and the bundled full_solar_system scene
+  (phases 3-7);
+* the expansion-state engine: kernel 3 (3-limb pair force) and kernel 4
+  (4-limb update) against their plain versions (phases 8-9), the N = 4096
+  parity step ``elm2_step_qf(precise_sums=True)`` through both (path B,
+  phase 10), and ``precision="extended3"`` generation of full_solar_system
+  through kernel 3 (path A, phase 11).
+
+Every launch count is set to 0 just before a path is driven and read just
+after.  Each phase prints one line; the line before the last is the
+kernels' JSON record and the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits nonzero and prints no result.
+Without a CUDA device it exits nonzero at once.  It imports no JAX.
 
 ``--phases`` runs a subset (for debugging; the result lines are printed only
 when all phases ran).
@@ -33,6 +43,8 @@ H = 600.0              # step, seconds
 FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
+EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
+ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11"
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -41,6 +53,29 @@ KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's
 # package's kernel shows 5.2e-12 there too (3-limb positions fix it, kernel 3)
 KERNEL1_VS_F64_FSS = 1e-11
 KERNEL2_BOUND = 2.0**-48   # times max|y|; same ops in the same order: expect bitwise
+KERNEL3_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 3 against its plain version
+KERNEL3_VS_F64 = 1e-12     # against native f64 from exact host limbs, on every input
+# Path B's fused step (kernel 4's precise beta sum) against the unfused step
+# (the precise cascade), two arithmetics of one grade, compared on the full
+# 4-limb expansions, times max|y|.  Measured on an H100 at N = 4096: one
+# step 2^-79.5; kernel 4 in its two-float (plain) mode parts from the
+# unfused step by 2^-50.0.  After 25 steps 2^-58.5 against plain mode's
+# 2^-48.0: the deep differences move limb 2 of a few bodies by an ulp, the
+# force sees that, and the cluster amplifies it.  Both runs are deterministic.
+# The phase runs plain mode too and checks that both bounds see it, and holds
+# the fused step at depth bitwise to kernel 4's plain version plus kernel 3.
+QF_STEP_BOUND = 2.0**-70
+QF_EARLY_BOUND = 2.0**-54
+# Path A's integrated positions after EXT_DAYS, compared on the propagators'
+# carried states (evaluated polynomials would add the metre-level f64
+# rounding of degree-8 fits to ~1.4e9 km heliocentric samples).  Against
+# "extended" (the same expansion state, f64 force): 1e-3 km, the bar of
+# test_extended_precision_generation (measured on CPU: 6.9e-6 km).  Against
+# "f64" that bar is out of reach: the f64 state's own rounding parts it from
+# the expansion state by 4.19e-3 km at Charon on CPU (JAX package and port
+# alike) and by 2.44e-2 km at Triton on an H100, so "f64" is held to 0.1 km.
+EXT3_VS_EXT_KM = 1e-3
+EXT3_VS_F64_KM = 1e-1
 # The 4096-body cluster at h = 600 s is chaotic: two native-f64 runs started
 # 2^-48 apart differ by the whole system size after 400 steps (measured on
 # an H100), so no two implementations that round differently can agree there.
@@ -99,7 +134,7 @@ def _raw_coeff_err(a: dict, b: dict) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default=ALL_PHASES)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -114,8 +149,21 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.integrators import get
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.io import scene
-    from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_nbody, nbody
+    from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_limbs, cuda_nbody, nbody
+    from ephemeris_explorer_tpu_torch.ops import expansion as ex
     from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
+
+    launchers = {"accel_df64": cuda_nbody.pairwise_accel_df64,
+                 "elm2f_update": cuda_elm2.elm2f_update,
+                 "accel_limbs3": cuda_limbs.pairwise_accel_limbs_pair,
+                 "elm2q_update": cuda_elm2q.elm2q_update}
+
+    def reset_counts():
+        for fn in launchers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in launchers.items()}
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -334,14 +382,13 @@ def main(argv=None) -> int:
             return e
 
         check(eph._use_fused_f(N_BODIES, dev), "the fused branch is not taken at N=4096")
-        cuda_nbody.pairwise_accel_df64.launches = 0
-        cuda_elm2.elm2f_update.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         e_fused = generate()
         t_fused = time.perf_counter() - t0
-        launches = {"accel_df64": cuda_nbody.pairwise_accel_df64.launches,
-                    "elm2f_update": cuda_elm2.elm2f_update.launches}
-        check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+        launches = read_counts()
+        check(launches["accel_df64"] > 0 and launches["elm2f_update"] > 0,
+              f"a kernel was not launched: {launches}")
 
         fused_gate = eph._use_fused_f
         eph._use_fused_f = lambda n, d: False
@@ -369,8 +416,8 @@ def main(argv=None) -> int:
             "fused_body_steps_per_s": N_BODIES * GEN_STEPS / t_fused,
             "plain_f64_body_steps_per_s": N_BODIES * GEN_STEPS / t_plain, "card": smi,
         }))
-        for k, v in launches.items():
-            record.setdefault(k, {})["launches"] = v
+        for k in ("accel_df64", "elm2f_update"):
+            record.setdefault(k, {})["launches"] = launches[k]
 
     # -- phase 7: full_solar_system, one year --------------------------------
     if 7 in phases:
@@ -396,7 +443,269 @@ def main(argv=None) -> int:
             "bound": FSS_BOUND, "card": smi,
         }))
 
-    if phases != {1, 2, 3, 4, 5, 6, 7}:
+    # -- the expansion-state engine (kernels 3 and 4) ------------------------
+    fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
+
+    def limb_forces(mu64):
+        """(accel_limbs, accel_pair) through kernel 3 for (1, N) f64 mu."""
+        mh, ml = cuda_nbody.split_f64(mu64.reshape(1, -1))
+
+        def accel_pair(t, limbs):
+            return cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml)
+
+        def accel_limbs(t, limbs):
+            return cuda_nbody.combine_f64(*accel_pair(t, limbs))
+
+        return accel_limbs, accel_pair
+
+    def exp_head(ys):
+        return ex.to_f64(tuple(l[0] for l in ys))
+
+    def exp_diff(ys, ref):
+        """max |head(ys) - head(ref)| / max |head(ref)| on the full 4-limb
+        ring heads (below f64 rounding)."""
+        a, b = tuple(l[0] for l in ys), tuple(l[0] for l in ref)
+        return (ex.to_f64(ex.add(a, ex.neg(b))).abs().max() / ex.to_f64(b).abs().max()).item()
+
+    # -- phase 8: kernel 3 against its plain version --------------------------
+    if 8 in phases:
+        t_phase = time.perf_counter()
+        cases = [("cluster4096", *_cluster(N_BODIES)[::2]),
+                 ("ragged1000", *_cluster(1000, seed=1)[::2]),
+                 ("full_solar_system", fss.state.positions(), fss.state.mus())]
+        out = []
+        for name, p, m in cases:
+            limbs = ex.from_f64_host(p, dev)[:3]
+            m_dev = torch.as_tensor(m, dtype=f64, device=dev)
+            mh, ml = cuda_nbody.split_f64(m_dev.reshape(1, -1))
+            k = cuda_nbody.combine_f64(*cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml))
+            r = cuda_nbody.combine_f64(*cuda_limbs.pairwise_accel_limbs_pair_plain(*limbs, mh, ml))
+            ref = nbody.pairwise_accel(torch.as_tensor(p, dtype=f64, device=dev), m_dev)
+            torch.cuda.synchronize()
+            abs_err = (k - r).abs().max().item()
+            e_plain = abs_err / r.abs().max().item()
+            e_f64 = (k - ref).abs().max().item() / ref.abs().max().item()
+            check(bool(torch.isfinite(k).all()), f"kernel 3 non-finite on {name}")
+            check(e_plain <= KERNEL3_VS_PLAIN, f"kernel 3 vs plain on {name}: {e_plain}")
+            check(e_f64 <= KERNEL3_VS_F64, f"kernel 3 vs f64 on {name}: {e_f64}")
+            kms = cuda_ms(lambda: cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml), 20)
+            pms = cuda_ms(lambda: cuda_limbs.pairwise_accel_limbs_pair_plain(*limbs, mh, ml), 3, 1)
+            gms = graph_ms(lambda: cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml), 20)
+            out.append({"input": name, "n": len(p), "rel_err_vs_plain": e_plain,
+                        "rel_err_vs_f64": e_f64, "f64_bound": KERNEL3_VS_F64,
+                        "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
+                        "plain_us": pms * 1e3})
+            if name == "cluster4096":
+                record["accel_limbs3"] = {"max_abs_err": abs_err, "ms": kms, "plain_ms": pms}
+        print(json.dumps({"phase": 8, "kernel": "accel_limbs3", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # expansion-state startups (kernel 3 for every force), shared by 9 and 10
+    if phases & {9, 10}:
+        cl_limbs, cl_pair = limb_forces(mu_dev)
+
+        def kernel1_accel(t, y):
+            return cuda_nbody.pairwise_accel(y, mu_hi, mu_lo)
+
+        def init_cluster():
+            """bench.py:bench_parity's startup: elm2_init_q with the kernel-1
+            drop-in as `accel` and kernel 3 as `accel_limbs` (which then
+            carries every startup force)."""
+            return ms.elm2_init_q(tab, kernel1_accel, 0.0,
+                                  torch.as_tensor(pos, dtype=f64, device=dev),
+                                  torch.as_tensor(vel, dtype=f64, device=dev), H,
+                                  accel_limbs=cl_limbs)
+
+    # -- phase 9: kernel 4 against its plain version --------------------------
+    if 9 in phases:
+        t_phase = time.perf_counter()
+        fss_mu = torch.as_tensor(fss.state.mus(), dtype=f64, device=dev)
+        fss_q = ms.elm2_init_q(tab, None, 0.0, None,
+                               torch.as_tensor(fss.state.velocities(), dtype=f64, device=dev),
+                               H, accel_limbs=limb_forces(fss_mu)[0],
+                               y0_limbs=ex.from_f64_host(fss.state.positions(), dev))
+        out = []
+        for name, c in (("cluster4096", ms.elm2_qf_from_q(init_cluster())),
+                        ("full_solar_system", ms.elm2_qf_from_q(fss_q))):
+            for precise in (False, True):
+                tables = cuda_elm2q._tables(tab, H, precise)
+                yk = cuda_elm2q.elm2q_update(tab, H, c.ys, c.dd, precise=precise)
+                yp = cuda_elm2q.elm2q_update_plain(*tables, c.ys, c.dd, precise)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(yk, yp))
+                diff = sum(a.to(f64) - b.to(f64) for a, b in zip(yk, yp)).abs().max().item()
+                ymax = exp_head(c.ys).abs().max().item()
+                check(bool(all(torch.isfinite(a).all() for a in yk)), f"kernel 4 non-finite on {name}")
+                check(bitwise, f"kernel 4 vs plain on {name} (precise={precise}): not bitwise, "
+                               f"max|d| = {diff}, {diff / ymax} of max|y|")
+                kms = cuda_ms(lambda: cuda_elm2q.elm2q_update(tab, H, c.ys, c.dd, precise=precise),
+                              200)
+                pms = cuda_ms(lambda: cuda_elm2q.elm2q_update_plain(*tables, c.ys, c.dd, precise),
+                              5, 1)
+                gms = graph_ms(lambda: cuda_elm2q.elm2q_update(tab, H, c.ys, c.dd, precise=precise),
+                               200)
+                out.append({"input": name, "m": c.ys[0][0].numel(), "precise": precise,
+                            "bitwise": bitwise, "max_abs_err": diff,
+                            "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
+                            "plain_us": pms * 1e3})
+                if name == "cluster4096" and precise:
+                    record["elm2q_update"] = {"max_abs_err": diff, "ms": kms, "plain_ms": pms}
+        print(json.dumps({"phase": 9, "kernel": "elm2q_update", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 10: path B, the N=4096 parity step through kernels 4 and 3 ------
+    if 10 in phases:
+        t_phase = time.perf_counter()
+
+        def fused_step(c):
+            return ms.elm2_step_qf(tab, cl_pair, H, c, precise_sums=True)
+
+        def unfused_step(c):
+            return ms.elm2_step_q(tab, None, H, c, accel_limbs=cl_limbs, with_velocity=False,
+                                  precise_sums=True)
+
+        def plain_mode_step(c):
+            return ms.elm2_step_qf(tab, cl_pair, H, c, precise_sums=False)
+
+        def run(step, c, steps):
+            """`steps` steps; also returns the carry after EARLY_STEPS."""
+            early = None
+            for i in range(steps):
+                c = step(c)
+                if i + 1 == EARLY_STEPS:
+                    early = c
+            return c, early
+
+        warm = init_cluster()
+        run(fused_step, ms.elm2_qf_from_q(warm), 2), run(unfused_step, warm, 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        q0 = init_cluster()
+        cf, yf_early = run(fused_step, ms.elm2_qf_from_q(q0), FLAGSHIP_STEPS)
+        vf = ms.elm2_velocity_qf(tab, cf, H)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+        launches_b = read_counts()
+        check(launches_b["accel_limbs3"] > 0 and launches_b["elm2q_update"] > 0,
+              f"path B did not launch kernels 3 and 4: {launches_b}")
+        check(launches_b["elm2q_update"] == FLAGSHIP_STEPS, f"kernel 4 once per step: {launches_b}")
+
+        qf0 = ms.elm2_qf_from_q(q0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(fused_step, qf0, FLAGSHIP_STEPS)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cu, yu_early = run(unfused_step, q0, FLAGSHIP_STEPS)
+        torch.cuda.synchronize()
+        t_unfused = time.perf_counter() - t0
+        # the chaos floor: the unfused run from the position ring rounded to f64
+        cq, _ = run(unfused_step, q0._replace(ys=ex.from_f64(ex.to_f64(q0.ys))), FLAGSHIP_STEPS)
+
+        y1u = unfused_step(q0).ys
+        one = exp_diff(fused_step(qf0).ys, y1u)
+        early = exp_diff(yf_early.ys, yu_early.ys)
+        # what the two bounds must see: kernel 4 in its two-float mode
+        one_pm = exp_diff(plain_mode_step(qf0).ys, y1u)
+        early_pm = exp_diff(run(plain_mode_step, qf0, EARLY_STEPS)[1].ys, yu_early.ys)
+        # the fused step at depth: kernel 4's plain version, then kernel 3
+        deep = fused_step(yf_early)
+        y_plain = cuda_elm2q.elm2q_update_plain(*cuda_elm2q._tables(tab, H, True), yf_early.ys,
+                                                yf_early.dd, True)
+        f_plain = cl_pair(deep.t, y_plain[:3])
+        composed = (all(torch.equal(a[0], b) for a, b in zip(deep.ys, y_plain))
+                    and torch.equal(deep.dd.hi[0], f_plain[0])
+                    and torch.equal(deep.dd.lo[0], f_plain[1]))
+        yf, yu, yq = exp_head(cf.ys), exp_head(cu.ys), exp_head(cq.ys)
+        d_fused = (yf - yu).norm(dim=1)
+        d_floor = (yq - yu).norm(dim=1)
+        shadow = (d_fused.median() / d_floor.median()).item()
+        ymax = yu.abs().max().item()
+        check(bool(torch.isfinite(yf).all() and torch.isfinite(vf).all()), "path B state non-finite")
+        check(one <= QF_STEP_BOUND, f"path B fused vs unfused step: {one}")
+        check(early <= QF_EARLY_BOUND, f"path B fused vs unfused after {EARLY_STEPS} steps: {early}")
+        check(one_pm > QF_STEP_BOUND and early_pm > QF_EARLY_BOUND,
+              f"path B's bounds cannot tell kernel 4's plain mode: {one_pm}, {early_pm}")
+        check(composed, f"path B step {EARLY_STEPS + 1} is not kernel 4's plain version + kernel 3")
+        check(shadow <= SHADOW_FACTOR, f"path B fused run does not shadow the unfused: {shadow}")
+        print(json.dumps({
+            "phase": 10, "path": "B", "n": N_BODIES, "steps": FLAGSHIP_STEPS, "h_s": H,
+            "launches": launches_b, "path_s": t_path,
+            "rel_exp_diff_one_step": one, "one_step_bound": QF_STEP_BOUND,
+            f"rel_exp_diff_after_{EARLY_STEPS}": early, "early_bound": QF_EARLY_BOUND,
+            "plain_mode_rel_exp_diff_one_step": one_pm,
+            f"plain_mode_rel_exp_diff_after_{EARLY_STEPS}": early_pm,
+            f"step_{EARLY_STEPS + 1}_bitwise_to_plain_update": composed,
+            f"rel_pos_diff_after_{FLAGSHIP_STEPS}": d_fused.max().item() / ymax,
+            f"f64_rounded_start_floor_after_{FLAGSHIP_STEPS}": d_floor.max().item() / ymax,
+            "median_divergence_vs_floor": shadow, "shadow_bound": SHADOW_FACTOR,
+            "fused_qf_body_steps_per_s": N_BODIES * FLAGSHIP_STEPS / t_fused,
+            "unfused_q_body_steps_per_s": N_BODIES * FLAGSHIP_STEPS / t_unfused,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+        for k in ("accel_limbs3", "elm2q_update"):
+            record.setdefault(k, {})["launches"] = launches_b[k]
+
+    # -- phase 11: path A, "extended3" generation of full_solar_system --------
+    if 11 in phases:
+        t_phase = time.perf_counter()
+        span = port.Duration.from_days(EXT_DAYS)
+
+        def generate(precision, device):
+            e = eph.generate_ephemeris(fss.state, fss.settings, span, precision=precision,
+                                       device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            return e
+
+        eph.generate_ephemeris(fss.state, fss.settings, port.Duration.from_days(1),
+                               precision="extended3", device=dev)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        e_gpu = generate("extended3", dev)
+        t_gpu = time.perf_counter() - t0
+        launches_a = read_counts()
+        check(launches_a["accel_limbs3"] > 0 and launches_a["elm2q_update"] == 0,
+              f"path A must run kernel 3 and not kernel 4: {launches_a}")
+        t0 = time.perf_counter()
+        e_cpu = generate("extended3", torch.device("cpu"))
+        t_cpu = time.perf_counter() - t0
+        c_cpu = {n: e_cpu[n].coeffs for n in e_cpu.names}
+        c_gpu = {n: e_gpu[n].coeffs for n in e_gpu.names}
+        err = _coeff_err(c_cpu, c_gpu, fss.settings)
+        # the integrated positions after the span, "extended3" against "f64"
+        n_steps = int(round(span.as_seconds() / fss.settings.dt.as_seconds()))
+        heads = {}
+        for precision in ("extended3", "extended", "f64"):
+            prop = eph.NBodyPropagator(fss.state, fss.settings, precision=precision, device=dev)
+            prop.step_chunk(n_steps)
+            c = prop._carry.ms
+            heads[precision] = c.ys[0] if precision == "f64" else exp_head(c.ys)
+        d_ext = (heads["extended3"] - heads["extended"]).abs().max().item()
+        d_km = (heads["extended3"] - heads["f64"]).abs().max().item()
+        fitted = [n for n in e_gpu.names if e_gpu[n].segment_count]
+        for n in fitted:
+            b = e_gpu[n]
+            check(np.isfinite(b.position(b.end_s)).all(), f"path A position of {n} not finite")
+        check(bool(torch.isfinite(heads["extended3"]).all()), "path A state not finite")
+        check(err <= FSS_BOUND, f"path A CUDA vs CPU: {err}")
+        check(d_ext < EXT3_VS_EXT_KM, f"path A extended3 vs extended: {d_ext} km")
+        check(d_km < EXT3_VS_F64_KM, f"path A extended3 vs f64: {d_km} km")
+        print(json.dumps({
+            "phase": 11, "path": "A", "scene": "full_solar_system_2433282.5",
+            "precision": "extended3", "n": fss.state.n, "sim_days": EXT_DAYS,
+            "bodies_fitted": len(fitted), "launches": launches_a,
+            "sim_days_per_s": EXT_DAYS / t_gpu,
+            "cpu_sim_days_per_s": EXT_DAYS / t_cpu, "coeff_err_vs_cpu": err,
+            "bound": FSS_BOUND, "max_km_vs_extended": d_ext, "extended_km_bound": EXT3_VS_EXT_KM,
+            "max_km_vs_f64": d_km, "f64_km_bound": EXT3_VS_F64_KM,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
+    if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
     kernels = [
         {"name": "accel_df64", "route": "cuda",
@@ -405,6 +714,12 @@ def main(argv=None) -> int:
         {"name": "elm2f_update", "route": "cuda",
          "source": "ephemeris_explorer_tpu_torch/csrc/elm2f_update.cu",
          "replaces": "ephemeris_explorer_tpu/ops/pallas_elm2.py:310", **record["elm2f_update"]},
+        {"name": "accel_limbs3", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/accel_limbs3.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:383", **record["accel_limbs3"]},
+        {"name": "elm2q_update", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/elm2q_update.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_elm2.py:97", **record["elm2q_update"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

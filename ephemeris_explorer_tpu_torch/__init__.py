@@ -6,7 +6,7 @@ never JAX, never sets a global default dtype (every tensor names its
 dtype), and takes devices explicitly (a ``device`` argument or the device of
 the input tensors).
 
-The hot path on an NVIDIA H100 runs two hand-written CUDA kernels
+The hot paths on an NVIDIA H100 run four hand-written CUDA kernels
 (``csrc/``), built at first use by :mod:`._build`; on CPU tensors their
 wrappers run the plain PyTorch versions of the same arithmetic.
 """

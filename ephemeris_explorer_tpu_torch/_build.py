@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The kernels are compiled by ``nvcc`` into one shared library with a plain C
+Each ``csrc/*.cu`` is compiled by its own ``nvcc``, all of them started
+together, and the objects are linked into one shared library with a plain C
 interface, ``build/kernels/<digest>/libeet_cuda.so`` under the checkout root
 (or under ``$EET_CUDA_BUILD_DIR`` when that is set), and loaded with
 ``ctypes``.  ``<digest>`` hashes the sources and the flags, so a changed
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -30,9 +32,9 @@ BUILD_ROOT = Path(
 )
 LIB_NAME = "libeet_cuda.so"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 )
 
@@ -64,15 +66,43 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
+    """Wait for every process; their output, or raise if any failed."""
+    logs, failed = [], []
+    for what, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {what}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{what} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    return log
+
+
 def _compile(lib_path: Path) -> str:
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)
+    tmp = lib_path.parent / f"tmp.{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    try:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp / f"{src.stem}.o"
+            objs.append(str(obj))
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log = _run(procs)
+        so = tmp / LIB_NAME
+        log += _run([("link", subprocess.Popen(
+            [nvcc, "-shared", *ARCH, "-o", str(so), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))])
+        os.replace(so, lib_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     lib_path.with_name("build.log").write_text(log)
     return log
 
@@ -84,6 +114,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_accel_df64_tile.restype = _int
     lib.eet_elm2f_update.argtypes = [_vp, _vp, _int] + [_vp] * 6 + [_int, _vp]
     lib.eet_elm2f_update.restype = _int
+    lib.eet_accel_limbs3.argtypes = [_vp] * 9 + [_int, _int, _vp]
+    lib.eet_accel_limbs3.restype = _int
+    lib.eet_accel_limbs3_tile.argtypes = []
+    lib.eet_accel_limbs3_tile.restype = _int
+    lib.eet_elm2q_update.argtypes = [_vp, _int, _vp, _int, ctypes.c_uint] + [_vp] * 10 + [_int, _vp]
+    lib.eet_elm2q_update.restype = _int
     return lib
 
 

@@ -33,37 +33,13 @@
 // f32 rsqrt seed, which differs from other platforms' by an ulp before the
 // Newton step absorbs it.
 
-#include <cuda_runtime.h>
-
-#include "twofloat.cuh"
+#include "pairforce.cuh"
 
 namespace {
 
 using eet::TF;
 
-constexpr int kTile = 128;
-
-// x * x with the split of x.hi supplied (pallas_nbody._sqr_presplit).
-__device__ __forceinline__ TF sqr_presplit(TF x, TF xs) {
-  using namespace eet;
-  float p = fmul(x.hi, x.hi);
-  float e = fadd(fadd(fsub(fmul(xs.hi, xs.hi), p), fmul(2.0f, fmul(xs.hi, xs.lo))),
-                 fmul(xs.lo, xs.lo));
-  e = fadd(e, fmul(2.0f, fmul(x.hi, x.lo)));
-  return quick_two_sum(p, e);
-}
-
-// Two-float 1/sqrt(x) (pallas_nbody._rsqrt_df with one refinement).
-__device__ __forceinline__ TF rsqrt_df(TF x) {
-  using namespace eet;
-  float y0 = rsqrtf(x.hi);
-  TF xy2 = mul(x, two_sqr(y0));
-  float t = fadd(fsub(xy2.hi, 1.0f), xy2.lo);
-  TF corr = add_float(mul_float(xy2, -0.5f), 1.5f);
-  corr.lo = fadd(corr.lo, fmul(fmul(0.375f, t), t));
-  TF y = two_prod(y0, corr.hi);
-  return quick_two_sum(y.hi, fadd(y.lo, fmul(y0, corr.lo)));
-}
+constexpr int kTile = eet::kPairTile;
 
 __global__ void __launch_bounds__(kTile)
 accel_df64_partial(const float* __restrict__ pos_hi, const float* __restrict__ pos_lo,
@@ -122,22 +98,6 @@ accel_df64_partial(const float* __restrict__ pos_hi, const float* __restrict__ p
   }
 }
 
-// out[e] = sum over the S splits of part[s, e], accurate adds in split order.
-__global__ void accel_df64_reduce(const float* __restrict__ part_hi,
-                                  const float* __restrict__ part_lo,
-                                  float* __restrict__ out_hi, float* __restrict__ out_lo,
-                                  int m, int splits) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  TF acc{part_hi[e], part_lo[e]};
-  for (int s = 1; s < splits; ++s) {
-    acc = eet::add(acc, TF{part_hi[static_cast<size_t>(s) * m + e],
-                           part_lo[static_cast<size_t>(s) * m + e]});
-  }
-  out_hi[e] = acc.hi;
-  out_lo[e] = acc.lo;
-}
-
 }  // namespace
 
 extern "C" {
@@ -157,10 +117,7 @@ int eet_accel_df64(const float* pos_hi, const float* pos_lo, const float* mu_hi,
                                                  part_lo, n, tiles_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = 3 * n;
-  accel_df64_reduce<<<(m + 255) / 256, 256, 0, stream>>>(part_hi, part_lo, out_hi, out_lo,
-                                                         m, splits);
-  return static_cast<int>(cudaGetLastError());
+  return eet::launch_pair_reduce(part_hi, part_lo, out_hi, out_lo, 3 * n, splits, stream);
 }
 
 }  // extern "C"

@@ -76,6 +76,12 @@ __device__ __forceinline__ TF add(TF x, TF y) {
 
 __device__ __forceinline__ TF sub(TF x, TF y) { return add(x, TF{-y.hi, -y.lo}); }
 
+// Cheaper two-float add (eft.add_sloppy): no cancellation allowed.
+__device__ __forceinline__ TF add_sloppy(TF x, TF y) {
+  TF s = two_sum(x.hi, y.hi);
+  return quick_two_sum(s.hi, fadd(s.lo, fadd(x.lo, y.lo)));
+}
+
 __device__ __forceinline__ TF add_float(TF x, float b) {
   TF s = two_sum(x.hi, b);
   return quick_two_sum(s.hi, fadd(s.lo, x.lo));

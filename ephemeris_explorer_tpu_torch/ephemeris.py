@@ -13,10 +13,17 @@ NBodyPropagator + SplineInterpolators + UniformSpline,
   lookup, push/clear/append/prepend, Horner value and derivative), and
   :class:`PackedEphemeris` is the flattened device view.
 
-Routing: below ``N*3 = 4096`` (and off CUDA) each step is the plain
-native-f64 ``elm2_step``.  From there on a CUDA device, the chunk runs the
-fused two-float step: kernel 2 for the position update and kernel 1 for the
-force (:func:`_use_fused_f`).  Only ``precision="f64"`` is ported.
+Routing at ``precision="f64"``: below ``N*3 = 4096`` (and off CUDA) each
+step is the plain native-f64 ``elm2_step``.  From there on a CUDA device,
+the chunk runs the fused two-float step: kernel 2 for the position update
+and kernel 1 for the force (:func:`_use_fused_f`).
+
+``precision="extended"`` / ``"extended3"`` keep positions as 4-limb f32
+expansions (``elm2_init_q`` from the exact host limb split, then
+``elm2_step_q`` with precise beta sums by default); under ``"extended3"``
+every force evaluation, startup included, is kernel 3 on the three leading
+limbs.  As in the JAX package, generation never takes the fused expansion
+step (kernel 4): that is the ``elm2_step_qf`` API.
 
 Time is carried as f64 seconds since the TAI epoch (ftime.Epoch offsets).
 """
@@ -33,15 +40,20 @@ from .ftime import Duration, Epoch
 from .integrators import get as get_method
 from .integrators.multistep import (
     ELM2Carry,
+    ELM2CarryQ,
     elm2_f_from,
     elm2_f_to,
+    elm2_init_q,
     elm2_startup_scan,
     elm2_step,
     elm2_step_f,
+    elm2_step_q,
     elm2_velocity,
+    elm2_velocity_q,
 )
 from .io.scene import DIV, EphemeridesSettings, SolarSystemState
-from .ops import cuda_nbody, nbody
+from .ops import cuda_limbs, cuda_nbody, nbody
+from .ops import expansion as ex
 from .ops.eft import TwoFloat
 from .ops.polyfit import MAX_COEFFS, fit_matrices, horner, horner_and_deriv
 
@@ -341,7 +353,7 @@ class SampleState(NamedTuple):
 
 
 class GenCarry(NamedTuple):
-    ms: ELM2Carry
+    ms: ELM2Carry | ELM2CarryQ   # ELM2CarryQ under the extended precisions
     samp: SampleState
 
 
@@ -423,6 +435,7 @@ class GenSpec:
     h: float                         # signed step (seconds); negative = backward
     counts: tuple[int, ...]          # per-body sample stride in steps
     degrees: tuple[int, ...]
+    precise_sums: bool = False       # pair-precision beta sums (extended modes)
 
     @property
     def backward(self) -> bool:
@@ -441,22 +454,33 @@ def _use_fused_f(n_bodies: int, device: torch.device) -> bool:
     return n_bodies * 3 >= 4096 and device.type == "cuda"
 
 
-def _chunk_fn(spec: GenSpec, n_scan: int, startup: bool):
+EXTENDED = ("extended", "extended3")
+
+
+def _chunk_fn(spec: GenSpec, precision: str, n_scan: int, startup: bool):
     """The generation chunk for a static config: ``n_scan`` multistep steps
     (after the ORDER startup steps when ``startup``), then the fit pass.
 
-    Returns ``chunk(mu, carry, init_y, init_dy, t0, n0) -> (GenCarry,
-    coeffs)``.  The JAX package caches one compiled chunk per shape; eager
-    torch has nothing to cache.
+    Returns ``chunk(mu, carry, init_y, init_dy, init_limbs, t0, n0) ->
+    (GenCarry, coeffs)``.  The JAX package caches one compiled chunk per
+    shape; eager torch has nothing to cache.
     """
     tab = get_method(spec.method)
     h = spec.h
     counts = spec.counts
     fit_ms = fit_matrices(spec.degrees, backward=spec.backward)
+    extended = precision in EXTENDED
 
-    def chunk(mu, carry: GenCarry | None, init_y, init_dy, t0: float, n0: int):
+    def chunk(mu, carry: GenCarry | None, init_y, init_dy, init_limbs, t0: float, n0: int):
         def accel(t, y):
             return nbody.pairwise_accel(y, mu)
+
+        accel_limbs = None
+        if precision == "extended3":
+            mu_hi, mu_lo = cuda_nbody.split_f64(mu.reshape(1, -1))
+
+            def accel_limbs(t, limbs):
+                return cuda_limbs.pairwise_accel_limbs(limbs[0], limbs[1], limbs[2], mu_hi, mu_lo)
 
         L = n_scan + (tab.order if startup else 0)
         rows = _sample_rows(counts, n0, L)
@@ -468,15 +492,28 @@ def _chunk_fn(spec: GenSpec, n_scan: int, startup: bool):
             ring0 = torch.zeros((len(counts), DIV, 3), dtype=torch.float64, device=mu.device)
             ring0[:, 0] = init_y  # sample k=0 = initial position
             samp = SampleState(ring=ring0, n=0)
-            t, dy, ys_fwd, ddys_fwd = elm2_startup_scan(tab, accel, t0, init_y, init_dy, h)
-            ms = ELM2Carry(t=t, ys=ys_fwd.flip(0), ddys=ddys_fwd.flip(0), dy=dy)
+            if extended:
+                # limb-aware startup from the exact host-split initial limbs
+                ms = elm2_init_q(tab, accel, t0, init_y, init_dy, h,
+                                 accel_limbs=accel_limbs, y0_limbs=init_limbs)
+                ys_fwd = ex.to_f64(tuple(l.flip(0) for l in ms.ys))
+            else:
+                t, dy, ys_fwd, ddys_fwd = elm2_startup_scan(tab, accel, t0, init_y, init_dy, h)
+                ms = ELM2Carry(t=t, ys=ys_fwd.flip(0), ddys=ddys_fwd.flip(0), dy=dy)
             rec += [ys_fwd[i] for i in range(tab.order) if need[i]]
             row = tab.order
         else:
             ms, samp = carry
             row = 0
 
-        if n_scan > 0 and _use_fused_f(len(counts), mu.device):
+        if extended:
+            for _ in range(n_scan):
+                ms = elm2_step_q(tab, accel, h, ms, accel_limbs=accel_limbs,
+                                 with_velocity=False, precise_sums=spec.precise_sums)
+                if need[row]:
+                    rec.append(ex.to_f64(tuple(l[0] for l in ms.ys)))
+                row += 1
+        elif n_scan > 0 and _use_fused_f(len(counts), mu.device):
             mu_hi, mu_lo = cuda_nbody.split_f64(mu.reshape(1, -1))
 
             def accel_pair(t, y: TwoFloat) -> TwoFloat:
@@ -500,7 +537,10 @@ def _chunk_fn(spec: GenSpec, n_scan: int, startup: bool):
         if n_scan > 0:
             # the force is velocity-independent: the Cowell velocity is
             # restored once per chunk
-            ms = ms._replace(dy=elm2_velocity(tab, ms, h))
+            if extended:
+                ms = ms._replace(dy=elm2_velocity_q(tab, ms, h, precise_sums=spec.precise_sums))
+            else:
+                ms = ms._replace(dy=elm2_velocity(tab, ms, h))
 
         rec_t = torch.stack(rec) if rec else samp.ring.new_zeros((0, len(counts), 3))
         ring, coeffs = _fit_chunk_pass(rec_t, rows, samp.ring, counts, fit_ms, n0, L)
@@ -528,28 +568,36 @@ class NBodyPropagator:
         precise_sums: bool | None = None,
         device="cpu",
     ):
-        """precision: "f64" (native IEEE f64 on CPU and on CUDA) or "auto"
-        (= "f64", as the JAX package resolves it off the TPU).  The extended
-        precisions, perturbations and precise sums wait for ROADMAP.md
-        queue 1, item 8."""
+        """precision: "f64" (native IEEE f64 on CPU and on CUDA), "extended"
+        (4-limb f32 expansion position state, force in f64), "extended3"
+        (expansion state + the 3-limb force, kernel 3 on CUDA), or "auto"
+        (= "f64", as the JAX package resolves it off the TPU).
+
+        precise_sums: pair-precision beta sums in the multistep update
+        (multistep._wsum_precise).  None = on for the extended precisions,
+        off for "f64" (where, as in the JAX package, it changes nothing).
+
+        "extendedF" and perturbations wait for ROADMAP.md queue 1, item 8."""
         names = [b.name for b in state.bodies]
         missing = [n for n in names if n not in settings.settings]
         if missing:
             raise KeyError(f"missing interpolation parameters for {missing}")
         if precision == "auto":
             precision = "f64"
-        if precision in ("extended", "extended3", "extendedF"):
+        if precision == "extendedF":
             raise NotImplementedError(
-                f"precision={precision!r} is not ported yet "
+                "precision='extendedF' (the tf96 force) is not ported yet "
                 "(ROADMAP.md queue 1, item 8: precision ladder)"
             )
-        if precision != "f64":
+        if precision not in ("f64", *EXTENDED):
             raise ValueError(precision)
-        if perturbations or precise_sums:
+        if perturbations:
             raise NotImplementedError(
-                "perturbations and precise sums are not ported yet "
+                "perturbations are not ported yet "
                 "(ROADMAP.md queue 1, item 8: precision ladder)"
             )
+        if precise_sums is None:
+            precise_sums = precision in EXTENDED
         self.precision = precision
         self.device = torch.device(device)
         self.spec = GenSpec(
@@ -557,6 +605,7 @@ class NBodyPropagator:
             h=float(np.copysign(settings.dt.as_seconds(), direction)),
             counts=tuple(settings.settings[n].count for n in names),
             degrees=tuple(settings.settings[n].degree for n in names),
+            precise_sums=bool(precise_sums),
         )
         self.names = names
         self.mus = state.mus()
@@ -571,6 +620,9 @@ class NBodyPropagator:
 
         self._mu_dev = dev(self.mus)
         self._init_state = (dev(state.positions()), dev(state.velocities()))
+        # the exact host-side limb split of the initial positions, which the
+        # extended precisions start from (ops.expansion.from_f64_host)
+        self._init_limbs = ex.from_f64_host(state.positions(), self.device)
 
     @property
     def steps_done(self) -> int:
@@ -601,8 +653,8 @@ class NBodyPropagator:
         offs = np.concatenate([[0], np.cumsum(n_new)])
 
         init_y, init_dy = self._init_state
-        carry, coeffs = _chunk_fn(self.spec, n_scan, startup)(
-            self._mu_dev, self._carry, init_y, init_dy, self.t0_s, n0
+        carry, coeffs = _chunk_fn(self.spec, self.precision, n_scan, startup)(
+            self._mu_dev, self._carry, init_y, init_dy, self._init_limbs, self.t0_s, n0
         )
         self._carry = carry
         self._n_steps_done += n_steps

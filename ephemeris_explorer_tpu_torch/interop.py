@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .ftime import Duration, Epoch
-from .integrators.multistep import ELM2Carry, ELM2CarryF
+from .integrators.multistep import ELM2Carry, ELM2CarryF, ELM2CarryQ, ELM2CarryQF
 from .io.scene import Body, EphemeridesSettings, InterpolationParameters, SolarSystemState
 from .ops.eft import TwoFloat
 
@@ -69,6 +69,31 @@ def carry_f_from(carry, device="cpu") -> ELM2CarryF:
     return ELM2CarryF(
         t=float(np.asarray(carry.t)),
         ys=pair_from(carry.ys, device),
+        dd=pair_from(carry.dd, device),
+        dy=_t(carry.dy, device, torch.float64),
+    )
+
+
+def limbs_from(limbs, device="cpu") -> tuple:
+    """A tuple of f32 limb arrays (an expansion) as torch tensors."""
+    return tuple(_t(l, device, torch.float32) for l in limbs)
+
+
+def carry_q_from(carry, device="cpu") -> ELM2CarryQ:
+    """The port's expansion-state ELM2CarryQ from the JAX package's."""
+    return ELM2CarryQ(
+        t=float(np.asarray(carry.t)),
+        ys=limbs_from(carry.ys, device),
+        ddys=_t(carry.ddys, device, torch.float64),
+        dy=_t(carry.dy, device, torch.float64),
+    )
+
+
+def carry_qf_from(carry, device="cpu") -> ELM2CarryQF:
+    """The port's fused expansion carry ELM2CarryQF from the JAX package's."""
+    return ELM2CarryQF(
+        t=float(np.asarray(carry.t)),
+        ys=limbs_from(carry.ys, device),
         dd=pair_from(carry.dd, device),
         dy=_t(carry.dy, device, torch.float64),
     )

@@ -22,6 +22,7 @@ from ephemeris_explorer_tpu.ephemeris import merge_bidirectional as jmerge
 from ephemeris_explorer_tpu.io import scene as jscene
 from ephemeris_explorer_tpu.ops.polyfit import fit_matrix
 from ephemeris_explorer_tpu_torch import Duration, interop
+from ephemeris_explorer_tpu_torch.integrators import get as get_method
 from ephemeris_explorer_tpu_torch import ephemeris as eph
 
 REPO = Path(__file__).resolve().parent.parent
@@ -160,11 +161,106 @@ def test_fused_gate():
     assert not eph._use_fused_f(4096, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("precision", ["extended", "extended3", "extendedF"])
-def test_unported_precisions_raise(sem, precision):
+@pytest.mark.parametrize("precision, perturbations", [
+    ("extendedF", ()),
+    ("extended", (("1pn",),)),
+])
+def test_unported_precisions_raise(sem, precision, perturbations):
+    """The tf96 force and perturbations are not ported yet."""
     _, state, settings = sem
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eph.NBodyPropagator(state, settings, precision=precision)
+        eph.NBodyPropagator(state, settings, precision=precision, perturbations=perturbations)
+
+
+def test_extended_generation_matches_jax(sem):
+    """precision="extended" against the JAX package's over 40 days: <= 1e-14
+    of max|position| in sample space (measured 3.1e-16).  The JAX chunk is
+    jitted, so on its CPU the precise beta sums take its native-f64 route
+    and its expansion adds compile into fused XLA:CPU programs, while the
+    port runs the error-free cascade eagerly; both sit far below the f64
+    branch's own 1e-14 difference."""
+    j, state, settings = sem
+    days = 40.0
+    ej = jgenerate(j.state, j.settings, JDuration.from_days(days), precision="extended")
+    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), precision="extended")
+    _same_layout(et, ej)
+    assert _sample_space_err(et, ej, settings) <= 1e-14
+
+
+@pytest.fixture(scope="module")
+def sem_extended3(sem):
+    _, state, settings = sem
+    return eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="extended3")
+
+
+def test_extended3_generation_matches_f64(sem, sem_extended3):
+    """precision="extended3" (expansion state, kernel 3's plain version for
+    every force) against "f64": below 1e-3 km at mid-span
+    (test_extended_precision_generation's bar; measured 3.2e-5 km)."""
+    _, state, settings = sem
+    e64 = eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="f64")
+    _same_layout(sem_extended3, e64)
+    t = state.epoch.as_offset_seconds() + 20 * 86400.0
+    assert np.abs(sem_extended3.positions(t) - e64.positions(t)).max() < 1e-3
+
+
+def test_extended3_routes_every_force_through_kernel3(sem, monkeypatch):
+    """Under "extended3" every force evaluation, the startup's included,
+    goes through kernel 3's wrapper and none through the f64 force; kernel 4
+    is never called (generation runs the unfused elm2_step_q)."""
+    from ephemeris_explorer_tpu_torch.ops import cuda_elm2q, cuda_limbs
+
+    _, state, settings = sem
+    calls = {"k3": 0, "f64": 0, "k4": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(cuda_limbs, "pairwise_accel_limbs_pair",
+                        counting("k3", cuda_limbs.pairwise_accel_limbs_pair))
+    monkeypatch.setattr(eph.nbody, "pairwise_accel", counting("f64", eph.nbody.pairwise_accel))
+    monkeypatch.setattr(cuda_elm2q, "elm2q_update", counting("k4", cuda_elm2q.elm2q_update))
+    eph.generate_ephemeris(state, settings, Duration.from_days(10.0), precision="extended3")
+    # 40 steps: the startup's ORDER full steps of FSAL starter sub-steps (one
+    # evaluation at the start, then one per stage after the first), then one
+    # per scan step
+    tab = get_method("QuinlanTremaine12")
+    starter = get_method(tab.starter)
+    assert starter.fsal
+    startup = 1 + tab.order * tab.substeps * (starter.stages - 1)
+    assert calls == {"k3": startup + 40 - tab.order, "f64": 0, "k4": 0}
+
+
+def test_extended3_chunked_equals_unchunked(sem, sem_extended3):
+    """Chunk boundaries change nothing under "extended3": identical
+    coefficients (the carry is the expansion state itself)."""
+    _, state, settings = sem
+    for chunk in (13, 37, 64):
+        parts = eph.generate_ephemeris(state, settings, Duration.from_days(40.0),
+                                       precision="extended3", chunk_steps=chunk)
+        _same_layout(parts, sem_extended3)
+        for n in sem_extended3.names:
+            np.testing.assert_array_equal(parts[n].coeffs, sem_extended3[n].coeffs)
+
+
+@pytest.mark.parametrize("precision, precise_sums, expect", [
+    ("extended", None, True), ("extended3", None, True), ("f64", None, False),
+    ("auto", None, False), ("extended", False, False), ("f64", True, True),
+])
+def test_precise_sums_resolution(sem, precision, precise_sums, expect):
+    """precise_sums=None resolves as in the JAX package: on for the extended
+    precisions, off for "f64" ("auto" is "f64" off the TPU)."""
+    from ephemeris_explorer_tpu.ephemeris import NBodyPropagator as JProp
+
+    j, state, settings = sem
+    prop = eph.NBodyPropagator(state, settings, precision=precision, precise_sums=precise_sums)
+    assert prop.spec.precise_sums is expect
+    assert prop.precision == ("f64" if precision == "auto" else precision)
+    jprop = JProp(j.state, j.settings, precision=precision, precise_sums=precise_sums)
+    assert jprop.spec.precise_sums == expect and jprop.precision == prop.precision
 
 
 def test_bucket_tail_matches_jax():
