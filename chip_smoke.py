@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``
+Builds the port's eight CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``
 (one ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives the port's paths through them:
 
@@ -14,7 +14,12 @@ PyTorch version on the card, and drives the port's paths through them:
   (4-limb update) against their plain versions (phases 8-9), the N = 4096
   parity step ``elm2_step_qf(precise_sums=True)`` through both (path B,
   phase 10), and ``precision="extended3"`` generation of full_solar_system
-  through kernel 3 (path A, phase 11).
+  through kernel 3 (path A, phase 11);
+* the force-mode ladder: kernels 5 (f32), 6 (mixed), 7 (masked f32) and 8
+  (two-float strong-pair correction) against their plain versions and the
+  JAX package's bars for the modes (phases 12-15), and the ladder at
+  N = 4096 as ``bench.py:438-604`` drives it, 400 force evaluations per
+  mode, with each mode's error against native f64 (path C, phase 16).
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; the line before the last is the
@@ -44,7 +49,7 @@ FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
 EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
-ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11"
+ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16"
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -87,6 +92,20 @@ EXT3_VS_F64_KM = 1e-1
 EARLY_STEPS = 25
 EARLY_BOUND = 1e-10        # times max|y|, after EARLY_STEPS steps / in the first segment
 SHADOW_FACTOR = 10.0       # median divergence vs the f64 chaos floor's, after 400 steps
+# The force-mode ladder (kernels 5-8).  Kernels 5-7 against their plain
+# versions: the f32 sums run in another order (the plain version's torch.sum
+# against the kernel's source order; measured on CPU at N = 4096: 9e-8 of
+# max|a| between the two orders), of max|a|.  Kernel 8: the plain version's
+# tree, op for op; only the f32 rsqrt seeds may differ by an ulp.
+F32_VS_PLAIN = 1e-6
+STRONG_VS_PLAIN = 1e-14
+STRONG_K = 16              # bench.py:565
+LADDER_EVALS = 400         # bench.py STEPS_PER_CHUNK: one strong-set refresh per chunk
+# Path C's errors against native f64 on the cluster at N = 4096, max|d|/max|a|
+# (on CPU at N = 2048: f32 3.3e-6, mixed 1.4e-7, split 3.2e-8; f32 at N = 4096
+# 2.6e-5): each mode's documented grade with a decade of room, and split
+# below f32 (the point of the mode).
+LADDER_BOUNDS = {"f32": 1e-4, "mixed": 1e-6, "split": 4e-7}
 # CUDA's f64 rsqrt is not correctly rounded, so the CUDA and CPU runs part at
 # the ulp level; the multistep grows that over 4320 steps to ~1e-13 of the
 # positions.  Coefficients are compared in sample space (see _coeff_err).
@@ -105,6 +124,40 @@ def _cluster(n, seed=0):
     vel = rng.normal(size=(n, 3)) * 1.0
     mu = rng.uniform(1.0e3, 1.0e5, size=n)
     return pos, vel, mu
+
+
+def ladder_loops(p64, m64) -> dict:
+    """Path C: the force-mode ladder's evaluation loops as ``bench.py:438-604``
+    drives them, each adding 1e-30 of the force to the state.  ``p64`` (N, 3)
+    f64 positions and ``m64`` (N,) f64 mu on the card.  Returns {mode: (loop,
+    start state, kernel names)}, where ``loop(state, evals)`` runs ``evals``
+    force evaluations and returns the state."""
+    from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_mixed, cuda_nbody, cuda_split
+    from ephemeris_explorer_tpu_torch.ops import split
+
+    mu32 = m64.float().reshape(1, -1)
+
+    def f32_loop(p, evals):       # bench_f32_fast's scan body
+        for _ in range(evals):
+            p = p + cuda_f32.pairwise_accel_f32(p, mu32) * 1e-30
+        return p
+
+    def mixed_loop(c, evals):     # bench_mixed's
+        for _ in range(evals):
+            a = cuda_mixed.pairwise_accel_mixed(c[0], c[1], mu32)
+            c = ((c[0] + a.t() * 1e-30).contiguous(), c[1])
+        return c
+
+    def split_loop(p, evals):     # bench_split's: the strong set refreshed once per chunk
+        idx = split.strong_pair_indices(p, m64, k=STRONG_K)
+        mask = split.strong_pair_mask(idx, p.shape[0])
+        for _ in range(evals):
+            p = p + cuda_split.pairwise_accel_split(p, m64, idx, mask) * 1e-30
+        return p
+
+    return {"f32": (f32_loop, p64.float(), ("accel_f32",)),
+            "mixed": (mixed_loop, cuda_nbody.split_f64(p64, transpose=True), ("accel_mixed",)),
+            "split": (split_loop, p64, ("accel_f32_masked", "strong_corr"))}
 
 
 def _coeff_err(a: dict, b: dict, settings, backward=False) -> float:
@@ -150,13 +203,18 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.io import scene
     from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_limbs, cuda_nbody, nbody
+    from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_mixed, cuda_split, split
     from ephemeris_explorer_tpu_torch.ops import expansion as ex
     from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
 
     launchers = {"accel_df64": cuda_nbody.pairwise_accel_df64,
                  "elm2f_update": cuda_elm2.elm2f_update,
                  "accel_limbs3": cuda_limbs.pairwise_accel_limbs_pair,
-                 "elm2q_update": cuda_elm2q.elm2q_update}
+                 "elm2q_update": cuda_elm2q.elm2q_update,
+                 "accel_f32": cuda_f32.pairwise_accel_f32,
+                 "accel_mixed": cuda_mixed.pairwise_accel_mixed,
+                 "accel_f32_masked": cuda_f32.pairwise_accel_f32_masked,
+                 "strong_corr": cuda_split.strong_correction_pair}
 
     def reset_counts():
         for fn in launchers.values():
@@ -705,6 +763,267 @@ def main(argv=None) -> int:
             "phase_s": time.perf_counter() - t_phase, "card": smi,
         }))
 
+    # -- the force-mode ladder (kernels 5-8) ----------------------------------
+    def hierarchy(n=16, seed=7):
+        """tests/test_pallas_nbody.py:_hierarchy: a sun, 3 planets with close
+        moon pairs, light far bodies."""
+        rng = np.random.default_rng(seed)
+        au = 1.5e11
+        p, m = [np.zeros(3)], [1.33e20]
+        for i in range(3):
+            pp = rng.normal(size=3)
+            pp = pp / np.linalg.norm(pp) * au * (0.7 + i)
+            p.append(pp)
+            m.append(3e14 * (i + 1))
+            for j in range(2):
+                off = rng.normal(size=3)
+                off = off / np.linalg.norm(off) * 4e8 * (1 + 0.002 * j)
+                p.append(pp + off)
+                m.append(5e12)
+        while len(p) < n:
+            p.append(rng.normal(size=3) * au * 2)
+            m.append(1e10)
+        return np.array(p), np.array(m)
+
+    def close_pair():
+        """test_mixed_mode_error_envelope's input (a Phobos-Mars-like pair)."""
+        rng = np.random.default_rng(29)
+        p = rng.normal(size=(16, 3)) * 1.0e6
+        p[1] = p[0] + np.array([40.1234567, 19.7654321, -9.87654321])
+        m = rng.uniform(1.0e3, 1.0e5, size=16)
+        m[0] = 1.0e7
+        return p, m
+
+    def seeded_cloud(n, seed):
+        rng = np.random.default_rng(seed)
+        return rng.normal(size=(n, 3)) * 1e6, rng.uniform(1e3, 1e5, size=n)
+
+    ladder_cases = [("cluster32", *_cluster(32)[::2]), ("ragged1000", *_cluster(1000, seed=1)[::2]),
+                    ("cluster4096", *_cluster(N_BODIES)[::2]), ("hierarchy", *hierarchy())]
+
+    def dev64(p, m):
+        return torch.as_tensor(p, dtype=f64, device=dev), torch.as_tensor(m, dtype=f64, device=dev)
+
+    def f32_in(p, m):
+        tp, tm = dev64(p, m)
+        return tp.float(), tm.float().reshape(1, -1)
+
+    def rel_rows(a, ref):
+        return ((a.double() - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+
+    def against_plain(name, kernel, plain, bound, combine=None):
+        """Kernel vs plain on one input: checks the bound, times both."""
+        k, r = kernel(), plain()
+        if combine is not None:
+            k, r = combine(*k), combine(*r)
+        torch.cuda.synchronize()
+        abs_err = (k - r).abs().max().item()
+        scale = r.abs().max().item()
+        check(bool(torch.isfinite(k).all()), f"{name}: kernel output not finite")
+        check(abs_err <= bound * scale, f"{name}: kernel vs plain {abs_err / scale} > {bound}")
+        return {"input": name, "rel_err_vs_plain": abs_err / scale, "max_abs_err": abs_err,
+                "bitwise": bool(torch.equal(k, r)), "kernel_us": cuda_ms(kernel, 20) * 1e3,
+                "kernel_device_us": graph_ms(kernel, 20) * 1e3,
+                "plain_us": cuda_ms(plain, 3, 1) * 1e3}
+
+    def keep(kernel_name, case):
+        if case["input"] == "cluster4096":
+            record[kernel_name] = {"max_abs_err": case["max_abs_err"], "ms": case["kernel_us"] / 1e3,
+                                   "plain_ms": case["plain_us"] / 1e3}
+
+    # -- phase 12: kernel 5 against its plain version --------------------------
+    if 12 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for name, p, m in ladder_cases:
+            p32, m32 = f32_in(p, m)
+            out.append(against_plain(name, lambda: cuda_f32.pairwise_accel_f32(p32, m32),
+                                     lambda: cuda_f32.pairwise_accel_f32_plain(p32, m32),
+                                     F32_VS_PLAIN))
+            keep("accel_f32", out[-1])
+        # test_f32_fast_mode_error_envelope's bar: within 1e-5 of kernel 1
+        p, m = seeded_cloud(64, 21)
+        tp, tm = dev64(p, m)
+        mh, ml = cuda_nbody.split_f64(tm.reshape(1, -1))
+        env = (cuda_f32.pairwise_accel_f32(*f32_in(p, m)).double()
+               - cuda_nbody.pairwise_accel(tp, mh, ml))
+        env = (env.abs().max() / cuda_nbody.pairwise_accel(tp, mh, ml).abs().max()).item()
+        check(1e-9 < env < 1e-5, f"kernel 5 vs kernel 1 on the 64-body cloud: {env}")
+        print(json.dumps({"phase": 12, "kernel": "accel_f32", "cases": out,
+                          "envelope_vs_kernel1": env, "envelope_bar": 1e-5,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 13: kernel 6 against its plain version --------------------------
+    if 13 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for name, p, m in ladder_cases + [("close_pair", *close_pair())]:
+            tp, tm = dev64(p, m)
+            ph, pl = cuda_nbody.split_f64(tp, transpose=True)
+            m32 = tm.float().reshape(1, -1)
+            out.append(against_plain(name, lambda: cuda_mixed.pairwise_accel_mixed(ph, pl, m32),
+                                     lambda: cuda_mixed.pairwise_accel_mixed_plain(ph, pl, m32),
+                                     F32_VS_PLAIN))
+            keep("accel_mixed", out[-1])
+        # test_mixed_mode_error_envelope's bars, per body against kernel 1
+        p, m = close_pair()
+        tp, tm = dev64(p, m)
+        mh, ml = cuda_nbody.split_f64(tm.reshape(1, -1))
+        ref = cuda_nbody.pairwise_accel(tp, mh, ml)
+        ph, pl = cuda_nbody.split_f64(tp, transpose=True)
+        mixed = cuda_mixed.pairwise_accel_mixed(ph, pl, tm.float().reshape(1, -1)).double()
+        fast = cuda_f32.pairwise_accel_f32(*f32_in(p, m)).double()
+        rel_m = ((mixed - ref).norm(dim=1) / ref.norm(dim=1))
+        rel_f = ((fast - ref).norm(dim=1) / ref.norm(dim=1))
+        check(1e-9 < rel_m.max().item() < 3e-6, f"mixed close pair per body: {rel_m.max().item()}")
+        check(rel_f[1].item() > 30 * rel_m[1].item(), "the close pair does not hurt kernel 5")
+        print(json.dumps({"phase": 13, "kernel": "accel_mixed", "cases": out,
+                          "close_pair_max_rel": rel_m.max().item(), "close_pair_bar": 3e-6,
+                          "close_pair_f32_over_mixed": rel_f[1].item() / rel_m[1].item(),
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 14: kernel 7 against its plain version ----------------------------
+    if 14 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for name, p, m in ladder_cases:
+            tp, tm = dev64(p, m)
+            n = len(p)
+            idx = split.strong_pair_indices(tp, tm, k=6 if name == "hierarchy" else STRONG_K)
+            mask = split.strong_pair_mask(idx, n)
+            no_diag = mask.clone()
+            no_diag.fill_diagonal_(0)
+            p32, m32 = f32_in(p, m)
+            for mk, diag in ((no_diag, False), (mask, True)):
+                case = against_plain(
+                    name, lambda: cuda_f32.pairwise_accel_f32_masked(p32, m32, mk, diag),
+                    lambda: cuda_f32.pairwise_accel_f32_masked_plain(p32, m32, mk, diag_in_mask=diag),
+                    F32_VS_PLAIN)
+                case["diag_in_mask"] = diag
+                out.append(case)
+            keep("accel_f32_masked", case)
+            # the rows form against the square form's row slices, bitwise
+            sq = cuda_f32.pairwise_accel_f32_masked(p32, m32, mask, diag_in_mask=True)
+            for r0 in range(0, n, max(1, n // 4) + 1):
+                nl = min(n - r0, max(1, n // 4) + 1)
+                rows = cuda_f32.pairwise_accel_f32_masked_rows(
+                    p32, m32, mask[r0:r0 + nl].contiguous(), p32[r0:r0 + nl].contiguous())
+                check(torch.equal(rows, sq[r0:r0 + nl]),
+                      f"kernel 7 rows form at {r0}:{r0 + nl} of {name} is not the square's slice")
+            case["rows_form_bitwise"] = True
+        print(json.dumps({"phase": 14, "kernel": "accel_f32_masked", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 15: kernel 8 against its plain version, and the split mode's bars --
+    if 15 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for name, p, m, k in [(c[0], c[1], c[2], 6 if c[0] == "hierarchy" else STRONG_K)
+                              for c in ladder_cases] + [("cloud64_k40", *seeded_cloud(64, 14), 40)]:
+            tp, tm = dev64(p, m)
+            idx = split.strong_pair_indices(tp, tm, k=k)
+            ph, pl = cuda_nbody.split_f64(tp)
+            mh, ml = cuda_nbody.split_f64(tm)
+            args = (ph, pl, ph, pl, mh, ml, idx)
+            case = against_plain(name, lambda: cuda_split.strong_correction_pair(*args),
+                                 lambda: cuda_split.strong_correction_pair_plain(*args),
+                                 STRONG_VS_PLAIN, combine=cuda_nbody.combine_f64)
+            case["k"] = k
+            sq = cuda_split._strong_correction_fast(tp, tm, idx)
+            r0 = len(p) // 3
+            rows = cuda_split._strong_correction_fast(tp, tm, idx[r0:].contiguous(), rows=tp[r0:])
+            check(torch.equal(rows, sq[r0:]), f"kernel 8 rows form on {name} is not bitwise")
+            case["rows_form_bitwise"] = True
+            out.append(case)
+            keep("strong_corr", case)
+
+        def split_err(p, m, k, **kw):
+            tp, tm = dev64(p, m)
+            idx = split.strong_pair_indices(tp, tm, k=k)
+            a = cuda_split.pairwise_accel_split(tp, tm, idx, split.strong_pair_mask(idx, len(p)),
+                                                **kw)
+            return rel_rows(a, nbody.pairwise_accel(tp, tm))
+
+        tp, tm = dev64(*hierarchy())
+        idx = split.strong_pair_indices(tp, tm, k=6)
+        fast_vs_f64 = rel_rows(cuda_split._strong_correction_fast(tp, tm, idx),
+                               split._strong_correction(tp, tm, idx))
+        bars = {  # name: (measured, bar), per body
+            "corr_fast_vs_f64_hierarchy": (fast_vs_f64, 5e-12),
+            "split_hierarchy_k6": (split_err(*hierarchy(), 6), 2e-9),
+            "split_cloud64_k8": (split_err(*seeded_cloud(64, 11), 8), 4e-7),
+            "all_strong_f64": (split_err(*seeded_cloud(16, 3), 15, corr="f64"), 1e-14),
+            "all_strong_fast": (split_err(*seeded_cloud(16, 3), 15), 1e-12),
+        }
+        for what, (got, bar) in bars.items():
+            check(got < bar, f"{what}: {got} >= {bar}")
+        # test_strong_pair_selection_invariants on the card
+        sel = split.strong_pair_indices(tp, tm, k=5).cpu()
+        mask = split.strong_pair_mask(sel, 16)
+        check(all(i not in r and len(set(r)) == 5 for i, r in enumerate(sel.tolist()))
+              and int(mask.sum()) == 16 * 6 and bool(mask.diagonal().all())
+              and 3 in sel[2] and 2 in sel[3] and 0 in sel[2] and 0 in sel[3],
+              "strong-pair selection invariants")
+        try:  # kernel 9 is not ported: corr="dd" must not run another correction
+            cuda_split.pairwise_accel_split(tp, tm, idx, split.strong_pair_mask(idx, 16), corr="dd")
+        except NotImplementedError:
+            pass
+        else:
+            check(False, 'corr="dd" did not raise')
+        print(json.dumps({"phase": 15, "kernel": "strong_corr", "cases": out,
+                          "bars": {k: {"measured": v[0], "bar": v[1]} for k, v in bars.items()},
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 16: path C, the force-mode ladder at N = 4096 ---------------------
+    if 16 in phases:
+        t_phase = time.perf_counter()
+        p64, m64 = dev64(pos, mu)
+        mu32 = m64.float().reshape(1, -1)
+        ref = nbody.pairwise_accel(p64, m64)
+        result = {}
+        for mode, (loop, start, kernels) in ladder_loops(p64, m64).items():
+            loop(start, 2)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            end = loop(start, LADDER_EVALS)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = read_counts()
+            check(all(launches[k] == LADDER_EVALS for k in kernels)
+                  and all(v == 0 for k, v in launches.items() if k not in kernels),
+                  f"path C {mode}: launches {launches}, expected {LADDER_EVALS} of {kernels}")
+            check(bool(torch.isfinite(end if mode != "mixed" else end[0]).all()),
+                  f"path C {mode} state not finite")
+            for k in kernels:
+                record.setdefault(k, {})["launches"] = launches[k]
+            result[mode] = {"launches": {k: launches[k] for k in kernels}, "path_s": elapsed,
+                            "force_evals_per_s_x_bodies": N_BODIES * LADDER_EVALS / elapsed}
+        # each mode's error against native f64 at the start positions
+        idx = split.strong_pair_indices(p64, m64, k=STRONG_K)
+        mask = split.strong_pair_mask(idx, N_BODIES)
+        forces = {"f32": cuda_f32.pairwise_accel_f32(p64.float(), mu32),
+                  "mixed": cuda_mixed.pairwise_accel_mixed(
+                      *cuda_nbody.split_f64(p64, transpose=True), mu32),
+                  "split": cuda_split.pairwise_accel_split(p64, m64, idx, mask),
+                  "split_corr_f64": cuda_split.pairwise_accel_split(p64, m64, idx, mask, corr="f64")}
+        scale = ref.abs().max().item()
+        for mode, a in forces.items():
+            a = a.double()
+            per_body = (a - ref).norm(dim=1) / ref.norm(dim=1)
+            err = (a - ref).abs().max().item() / scale
+            result.setdefault(mode, {}).update({
+                "rel_err_vs_f64": err, "per_body_max": per_body.max().item(),
+                "per_body_median": per_body.median().item()})
+            if mode in LADDER_BOUNDS:
+                result[mode]["bound"] = LADDER_BOUNDS[mode]
+                check(err <= LADDER_BOUNDS[mode], f"path C {mode} vs f64: {err}")
+        check(result["split"]["rel_err_vs_f64"] < result["f32"]["rel_err_vs_f64"],
+              "path C: the split mode is not more accurate than f32")
+        print(json.dumps({"phase": 16, "path": "C", "n": N_BODIES, "k": STRONG_K,
+                          "evals_per_mode": LADDER_EVALS, "modes": result,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
     if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
     kernels = [
@@ -720,6 +1039,19 @@ def main(argv=None) -> int:
         {"name": "elm2q_update", "route": "cuda",
          "source": "ephemeris_explorer_tpu_torch/csrc/elm2q_update.cu",
          "replaces": "ephemeris_explorer_tpu/ops/pallas_elm2.py:97", **record["elm2q_update"]},
+        {"name": "accel_f32", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/accel_f32.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:869", **record["accel_f32"]},
+        {"name": "accel_mixed", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/accel_mixed.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:776", **record["accel_mixed"]},
+        {"name": "accel_f32_masked", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/accel_f32.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:971",
+         **record["accel_f32_masked"]},
+        {"name": "strong_corr", "route": "cuda",
+         "source": "ephemeris_explorer_tpu_torch/csrc/strong_corr.cu",
+         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:1258", **record["strong_corr"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -120,6 +120,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_accel_limbs3_tile.restype = _int
     lib.eet_elm2q_update.argtypes = [_vp, _int, _vp, _int, ctypes.c_uint] + [_vp] * 10 + [_int, _vp]
     lib.eet_elm2q_update.restype = _int
+    lib.eet_accel_f32.argtypes = [_vp] * 4 + [_int, _int, _vp]
+    lib.eet_accel_f32.restype = _int
+    lib.eet_accel_f32_masked.argtypes = [_vp] * 6 + [_int] * 4 + [_vp]
+    lib.eet_accel_f32_masked.restype = _int
+    lib.eet_accel_f32_tile.argtypes = []
+    lib.eet_accel_f32_tile.restype = _int
+    lib.eet_accel_mixed.argtypes = [_vp] * 5 + [_int, _int, _vp]
+    lib.eet_accel_mixed.restype = _int
+    lib.eet_accel_mixed_tile.argtypes = []
+    lib.eet_accel_mixed_tile.restype = _int
+    lib.eet_strong_corr.argtypes = [_vp] * 9 + [_int, _int, _int, _vp]
+    lib.eet_strong_corr.restype = _int
     return lib
 
 

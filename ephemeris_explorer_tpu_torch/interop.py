@@ -104,6 +104,12 @@ def mu_pair_from(mu_hi, mu_lo, device="cpu") -> tuple[torch.Tensor, torch.Tensor
     return _t(mu_hi, device, torch.float32), _t(mu_lo, device, torch.float32)
 
 
+def strong_set_from(idx, mask, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The split mode's strong set: the JAX package's (NL, K) int32 indices
+    and (NL, N) int8 exclusion mask as the port's tensors."""
+    return _t(idx, device, torch.int32), _t(mask, device, torch.int8)
+
+
 def to_numpy(x):
     """Tensors, TwoFloats and carries back to numpy (recursively, on the host)."""
     if isinstance(x, torch.Tensor):

@@ -22,7 +22,7 @@ import torch
 from .. import _build
 from . import eft
 from .eft import TwoFloat
-from .cuda_nbody import _check_f32, on_device
+from .cuda_nbody import _check_input, on_device
 
 
 def _split_const(x: float) -> tuple[float, float]:
@@ -100,7 +100,7 @@ def elm2f_update(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
     if order != len(tab.c_y):
         raise ValueError(f"ring depth {order} != method order {len(tab.c_y)}")
     for name, x in (("ys.hi", ys.hi), ("ys.lo", ys.lo), ("dd.hi", dd.hi), ("dd.lo", dd.lo)):
-        _check_f32(name, x, shape, dev)
+        _check_input(name, x, shape, dev)
     out_hi = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     out_lo = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     if m == 0:

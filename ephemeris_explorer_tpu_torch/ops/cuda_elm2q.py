@@ -24,7 +24,7 @@ from .. import _build
 from . import eft
 from . import expansion as ex
 from .cuda_elm2 import elm2_update_coeffs
-from .cuda_nbody import _check_f32, on_device
+from .cuda_nbody import _check_input, on_device
 from .eft import TwoFloat
 
 
@@ -118,7 +118,7 @@ def elm2q_update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) 
         raise ValueError(f"expected {ex.K} limbs, got {len(ys)}")
     for name, x in (*((f"ys[{i}]", l) for i, l in enumerate(ys)),
                     ("dd.hi", dd.hi), ("dd.lo", dd.lo)):
-        _check_f32(name, x, shape, dev)
+        _check_input(name, x, shape, dev)
     out = tuple(torch.empty(shape[1:], dtype=torch.float32, device=dev) for _ in range(ex.K))
     if m == 0:
         return out

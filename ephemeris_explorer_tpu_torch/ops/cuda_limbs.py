@@ -17,7 +17,7 @@ import torch
 
 from .. import _build
 from . import eft
-from .cuda_nbody import _check_f32, _source_splits, _sqr_presplit, _rsqrt_df, _tree_sum
+from .cuda_nbody import _check_input, _source_splits, _sqr_presplit, _rsqrt_df, _tree_sum
 from .cuda_nbody import combine_f64, on_device
 from .eft import TwoFloat
 
@@ -80,7 +80,7 @@ def pairwise_accel_limbs_pair(l0, l1, l2, mu_hi, mu_lo):
     n = l0.shape[0]
     for name, x, shape in (("l0", l0, (n, 3)), ("l1", l1, (n, 3)), ("l2", l2, (n, 3)),
                            ("mu_hi", mu_hi, (1, n)), ("mu_lo", mu_lo, (1, n))):
-        _check_f32(name, x, shape, dev)
+        _check_input(name, x, shape, dev)
     out_hi = torch.empty((n, 3), dtype=torch.float32, device=dev)
     out_lo = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:

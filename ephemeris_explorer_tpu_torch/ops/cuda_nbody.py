@@ -130,9 +130,9 @@ def on_device(dev: torch.device):
             yield torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_f32(name: str, x: torch.Tensor, shape, device) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+def _check_input(name: str, x: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
     if x.device != device:
@@ -157,7 +157,7 @@ def pairwise_accel_df64(pos_hi, pos_lo, mu_hi, mu_lo):
     n = pos_hi.shape[1]
     for name, x, shape in (("pos_hi", pos_hi, (3, n)), ("pos_lo", pos_lo, (3, n)),
                            ("mu_hi", mu_hi, (1, n)), ("mu_lo", mu_lo, (1, n))):
-        _check_f32(name, x, shape, dev)
+        _check_input(name, x, shape, dev)
     out_hi = torch.empty((n, 3), dtype=torch.float32, device=dev)
     out_lo = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:

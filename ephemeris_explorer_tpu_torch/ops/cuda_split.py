@@ -1,0 +1,175 @@
+"""Kernel 8 and the magnitude-split force mode.
+
+Counterpart of ``ephemeris_explorer_tpu.ops.pallas_nbody``'s
+``_strong_correction_fast`` (TPU kernel ``_strong_corr_kernel_fast``, square
+and ``rows=`` forms), ``pairwise_accel_split`` and
+``pairwise_accel_split_rows``.  The split mode sums each body's K strongest
+attractors (:mod:`.split`) with the two-float strong-pair correction
+(kernel 8, ``csrc/strong_corr.cu``, whose header note says what bounds it on
+an H100 and how the design answers that) and every other pair with the
+masked f32 kernel (kernel 7, :mod:`.cuda_f32`).  ~1e-9 relative for
+dominated hierarchies, ~1e-7 for random clouds.
+
+:func:`strong_correction_pair` takes the plain PyTorch version
+(:func:`strong_correction_pair_plain`) only for CPU tensors; on CUDA tensors
+it launches the kernel or raises.  ``strong_correction_pair.launches``
+counts its kernel launches.  The kernel reads ``idx`` itself and gathers the
+split limbs, where the reference gathers, transposes and splits on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from . import eft
+from .cuda_f32 import pairwise_accel_f32_masked, pairwise_accel_f32_masked_rows
+from .cuda_nbody import _check_input, _rsqrt_df, combine_f64, on_device, split_f64
+from .eft import TwoFloat
+from .split import _strong_correction
+
+
+def _padded_width(k: int) -> int:
+    """KP: the next power of two of K (pallas_nbody.py:1311)."""
+    return 1 << max(k - 1, 0).bit_length()
+
+
+def _dd_tree_sum(x: TwoFloat) -> TwoFloat:
+    """The reference's binary-tree reduction over the last axis (a power of
+    two), halving as a[k] = add_sloppy(a[k], a[k + m]) (pallas_nbody.py:47)."""
+    hi, lo = x.hi, x.lo
+    assert hi.shape[-1] & (hi.shape[-1] - 1) == 0, "tree sum requires power-of-two length"
+    while hi.shape[-1] > 1:
+        m = hi.shape[-1] // 2
+        s = eft.add_sloppy(TwoFloat(hi[..., :m], lo[..., :m]), TwoFloat(hi[..., m:], lo[..., m:]))
+        hi, lo = s.hi, s.lo
+    return TwoFloat(hi[..., 0], lo[..., 0])
+
+
+def strong_correction_pair_plain(pos_hi, pos_lo, rows_hi, rows_lo, mu_hi, mu_lo, idx):
+    """Plain PyTorch version of kernel 8, on any device.
+
+    pos_hi/pos_lo (N, 3) f32 split sources, rows_hi/rows_lo (NL, 3) f32
+    split receivers, mu_hi/mu_lo (N,) f32 split mu, idx (NL, K) int32.
+    Returns (hi, lo) of shape (NL, 3).  The chain of
+    pallas_nbody.py:1281-1295 on the gathered (NL, KP) pairs, the KP - K
+    padding entries in front with mu = 0 and a position of 0, then the
+    reference's tree over KP.
+    """
+    nl, k = idx.shape
+    if nl == 0 or k == 0:
+        z = torch.zeros((nl, 3), dtype=torch.float32, device=pos_hi.device)
+        return z, z.clone()
+    if idx.min() < 0 or idx.max() >= pos_hi.shape[0]:
+        raise IndexError(f"strong-set index outside [0, {pos_hi.shape[0]})")
+    kp = _padded_width(k)
+    g = idx.long()
+
+    def gather(x):                          # (NL, KP), padding in front
+        return torch.nn.functional.pad(x[g], (kp - k, 0))
+
+    d = [eft.sub(TwoFloat(gather(pos_hi[:, c]), gather(pos_lo[:, c])),
+                 TwoFloat(rows_hi[:, c:c + 1], rows_lo[:, c:c + 1])) for c in range(3)]
+    r2 = eft.add(eft.add(eft.sqr(d[0]), eft.sqr(d[1])), eft.sqr(d[2]))
+    pad = r2.hi == 0.0
+    r2 = TwoFloat(r2.hi.masked_fill(pad, 1.0), r2.lo.masked_fill(pad, 0.0))
+    u = _rsqrt_df(r2)
+    w = eft.mul(eft.mul(eft.sqr(u), TwoFloat(gather(mu_hi), gather(mu_lo))), u)
+    out = [_dd_tree_sum(eft.mul(w, d[c])) for c in range(3)]
+    return torch.stack([o.hi for o in out], -1), torch.stack([o.lo for o in out], -1)
+
+
+def strong_correction_pair(pos_hi, pos_lo, rows_hi, rows_lo, mu_hi, mu_lo, idx):
+    """The two-float strong-pair correction (kernel 8) on split f32 inputs,
+    as :func:`strong_correction_pair_plain` describes them; returns the raw
+    (hi, lo) pair.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.  An index outside [0, N) raises IndexError in the plain
+    version; the kernel, which cannot raise, gives NaN for that receiver."""
+    dev = pos_hi.device
+    if dev.type == "cpu":
+        return strong_correction_pair_plain(pos_hi, pos_lo, rows_hi, rows_lo, mu_hi, mu_lo, idx)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = pos_hi.shape[0]
+    nl, k = idx.shape
+    for name, x, shape in (("pos_hi", pos_hi, (n, 3)), ("pos_lo", pos_lo, (n, 3)),
+                           ("rows_hi", rows_hi, (nl, 3)), ("rows_lo", rows_lo, (nl, 3)),
+                           ("mu_hi", mu_hi, (n,)), ("mu_lo", mu_lo, (n,))):
+        _check_input(name, x, shape, dev)
+    _check_input("idx", idx, (nl, k), dev, dtype=torch.int32)
+    if nl == 0 or k == 0:
+        z = torch.zeros((nl, 3), dtype=torch.float32, device=dev)
+        return z, z.clone()
+    if n == 0:
+        raise IndexError("idx indexes sources, but there are none")
+    out_hi = torch.empty((nl, 3), dtype=torch.float32, device=dev)
+    out_lo = torch.empty((nl, 3), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with on_device(dev) as stream:
+        err = lib.eet_strong_corr(
+            pos_hi.data_ptr(), pos_lo.data_ptr(), rows_hi.data_ptr(), rows_lo.data_ptr(),
+            mu_hi.data_ptr(), mu_lo.data_ptr(), idx.data_ptr(), out_hi.data_ptr(),
+            out_lo.data_ptr(), n, nl, k, stream,
+        )
+    _build.check(err, "strong_corr")
+    strong_correction_pair.launches += 1
+    return out_hi, out_lo
+
+
+strong_correction_pair.launches = 0
+
+
+def _strong_correction_fast(pos, mu, idx, rows=None):
+    """The production strong-pair correction in two-float (~2^-47 per pair;
+    ~1.7e-12 on the hierarchy fixture, where the limbs' 2^-48-of-|p|
+    rounding meets close pairs): pos (N, 3) f64, mu (N,) f64, idx (NL, K)
+    int32 -> (NL, 3) in pos's dtype.  ``rows`` (NL, 3) selects the rows
+    form: receivers are the local rows, idx holds GLOBAL source columns.
+    Each receiver is computed alone, so the rows form equals the square
+    form's row slices bitwise."""
+    pos_hi, pos_lo = split_f64(pos)
+    rows_hi, rows_lo = (pos_hi, pos_lo) if rows is None else split_f64(rows)
+    mu_hi, mu_lo = split_f64(mu)
+    hi, lo = strong_correction_pair(pos_hi, pos_lo, rows_hi, rows_lo, mu_hi, mu_lo,
+                                    idx.to(torch.int32).contiguous())
+    return combine_f64(hi, lo).to(pos.dtype)
+
+
+def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool = False):
+    """Magnitude-split O(N^2) acceleration: f64 (N, 3) positions and (N,) mu
+    in, f64 (N, 3) accelerations out.  idx/mask from
+    :func:`.split.strong_pair_indices` / :func:`.split.strong_pair_mask` on a
+    recent snapshot (refresh per chunk).  The mask MUST carry the self
+    diagonal (``strong_pair_mask`` does): kernel 7 runs with
+    ``diag_in_mask=True`` here, as in the JAX package.
+
+    ``corr`` selects the strong-pair correction:
+      - "fast" (production): the two-float correction, kernel 8;
+      - "f64": the native-f64 chain (the cross-check oracle);
+      - "dd": the f64-differenced feed (kernel 9), not ported yet.
+    ``exact_f64=True`` is the old spelling of ``corr="f64"``.
+    """
+    if exact_f64:
+        corr = "f64"
+    if corr == "dd":
+        raise NotImplementedError(
+            'corr="dd" needs kernel 9 (_strong_corr_kernel), still to port: ROADMAP queue 2 #9')
+    if corr not in ("fast", "f64"):
+        raise ValueError(f"unknown strong-pair correction {corr!r}")
+    a32 = pairwise_accel_f32_masked(pos.to(torch.float32), mu.to(torch.float32).reshape(1, -1),
+                                    mask, diag_in_mask=True)
+    c = _strong_correction(pos, mu, idx) if corr == "f64" else _strong_correction_fast(pos, mu, idx)
+    return c + a32.to(pos.dtype)
+
+
+def pairwise_accel_split_rows(pos, rows, mu, idx, mask):
+    """Rows form of :func:`pairwise_accel_split` (the two-float correction
+    only): pos (N, 3) f64 all bodies, rows (NL, 3) f64 local receivers, mu
+    (N,), idx (NL, K) GLOBAL strong columns
+    (:func:`.split.strong_pair_indices_rows`), mask (NL, N) int8 with the
+    global diagonal (:func:`.split.strong_pair_mask_rows`) -> (NL, 3) f64,
+    equal bitwise to the square form's row slices."""
+    a32 = pairwise_accel_f32_masked_rows(pos.to(torch.float32),
+                                         mu.to(torch.float32).reshape(1, -1), mask,
+                                         rows.to(torch.float32))
+    return _strong_correction_fast(pos, mu, idx, rows=rows) + a32.to(pos.dtype)

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's expansion-state paths, on one NVIDIA GPU.
+"""Where the time goes on the port's step and force loops, on one NVIDIA GPU.
 
-    python3 profile_port.py [--out chiprun_out/profile_port.json]
+    python3 profile_port.py [--loops A,B,C] [--out FILE]
 
-Profiles three step loops with ``torch.profiler`` (CPU and CUDA activity):
+Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 
 * path B fused: 50 steps of ``elm2_step_qf(precise_sums=True)`` at N = 4096
   (kernel 4 then kernel 3 each step), as ``chip_smoke.py`` phase 10 runs it;
 * path B unfused: 10 steps of ``elm2_step_q(precise_sums=True)`` with kernel
   3 as the force (the eager expansion chain);
 * path A: one 144-step chunk of ``NBodyPropagator(precision="extended3")``
-  on full_solar_system, after a first chunk that runs the startup.
+  on full_solar_system, after a first chunk that runs the startup;
+* path C: 400 force evaluations of each rung of the force-mode ladder at
+  N = 4096 (f32: kernel 5; mixed: kernel 6; split, K = 16: kernels 7 and 8,
+  the strong set built once), as ``chip_smoke.py`` phase 16 runs them.
 
-For each: wall µs per step (synchronised host timer around the profiled
+``--loops`` picks the paths (default all three).  For each: wall µs per step (synchronised host timer around the profiled
 loop), device µs per step (the sum of the CUDA kernels' self time), the
 idle share 1 - device / wall, and the kernels by device time with their
 launches per step.  Each loop is also timed without the profiler.  Prints
@@ -75,8 +78,10 @@ def profile_loop(torch, name: str, body, steps: int, sync) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--loops", default="A,B,C")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
+    paths = set(args.loops.split(","))
 
     import torch
 
@@ -84,7 +89,7 @@ def main(argv=None) -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import H, N_BODIES, _cluster
+    from chip_smoke import H, N_BODIES, _cluster, ladder_loops
     from ephemeris_explorer_tpu_torch import ephemeris as eph
     from ephemeris_explorer_tpu_torch.integrators import get
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
@@ -112,34 +117,41 @@ def main(argv=None) -> int:
     def accel_limbs(t, limbs):
         return cuda_nbody.combine_f64(*accel_pair(t, limbs))
 
-    q0 = ms.elm2_init_q(tab, None, 0.0, torch.as_tensor(pos, dtype=f64, device=dev),
-                        torch.as_tensor(vel, dtype=f64, device=dev), H, accel_limbs=accel_limbs)
-    qf0 = ms.elm2_qf_from_q(q0)
+    results = []
+    if "B" in paths:
+        q0 = ms.elm2_init_q(tab, None, 0.0, torch.as_tensor(pos, dtype=f64, device=dev),
+                            torch.as_tensor(vel, dtype=f64, device=dev), H,
+                            accel_limbs=accel_limbs)
+        qf0 = ms.elm2_qf_from_q(q0)
 
-    def fused(steps):
-        def body():
-            c = qf0
-            for _ in range(steps):
-                c = ms.elm2_step_qf(tab, accel_pair, H, c, precise_sums=True)
-        return body
+        def fused(steps):
+            def body():
+                c = qf0
+                for _ in range(steps):
+                    c = ms.elm2_step_qf(tab, accel_pair, H, c, precise_sums=True)
+            return body
 
-    def unfused(steps):
-        def body():
-            c = q0
-            for _ in range(steps):
-                c = ms.elm2_step_q(tab, None, H, c, accel_limbs=accel_limbs,
-                                   with_velocity=False, precise_sums=True)
-        return body
+        def unfused(steps):
+            def body():
+                c = q0
+                for _ in range(steps):
+                    c = ms.elm2_step_q(tab, None, H, c, accel_limbs=accel_limbs,
+                                       with_velocity=False, precise_sums=True)
+            return body
 
-    fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
-    prop = eph.NBodyPropagator(fss.state, fss.settings, precision="extended3", device=dev)
-    prop.step_chunk(144)  # the startup chunk; each profiled call is one more chunk
-
-    results = [
-        profile_loop(torch, "path_B_fused_step", fused(50), 50, sync),
-        profile_loop(torch, "path_B_unfused_step", unfused(10), 10, sync),
-        profile_loop(torch, "path_A_extended3_chunk", lambda: prop.step_chunk(144), 144, sync),
-    ]
+        results += [profile_loop(torch, "path_B_fused_step", fused(50), 50, sync),
+                    profile_loop(torch, "path_B_unfused_step", unfused(10), 10, sync)]
+    if "A" in paths:
+        fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
+        prop = eph.NBodyPropagator(fss.state, fss.settings, precision="extended3", device=dev)
+        prop.step_chunk(144)  # the startup chunk; each profiled call is one more chunk
+        results.append(profile_loop(torch, "path_A_extended3_chunk",
+                                    lambda: prop.step_chunk(144), 144, sync))
+    if "C" in paths:
+        p64 = torch.as_tensor(pos, dtype=f64, device=dev)
+        for mode, (loop, start, _) in ladder_loops(p64, mu_dev).items():
+            results.append(profile_loop(torch, f"path_C_{mode}_eval",
+                                        lambda: loop(start, 400), 400, sync))
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))
     out = Path(args.out)

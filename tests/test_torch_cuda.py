@@ -1,4 +1,4 @@
-"""Kernels 1-4 against their plain PyTorch versions on an NVIDIA GPU.
+"""Kernels 1-8 against their plain PyTorch versions on an NVIDIA GPU.
 
 Every test here needs the card: it is marked ``cuda`` and skips (inside a
 fixture) when ``torch.cuda.is_available()`` is false.  The file imports no
@@ -16,7 +16,8 @@ import torch
 from ephemeris_explorer_tpu_torch import ephemeris as eph
 from ephemeris_explorer_tpu_torch.integrators import get
 from ephemeris_explorer_tpu_torch.io import scene
-from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_limbs, cuda_nbody
+from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_f32, cuda_limbs, cuda_mixed
+from ephemeris_explorer_tpu_torch.ops import cuda_nbody, cuda_split, split
 from ephemeris_explorer_tpu_torch.ops import expansion as ex
 from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
 
@@ -201,3 +202,205 @@ def test_extended3_generation_on_card(cuda_device):
         ys = prop._carry.ms.ys
         heads.append(ex.to_f64(tuple(l[0] for l in ys)))
     assert (heads[0] - heads[1]).abs().max() < 1e-4
+
+
+# -- the force-mode ladder (kernels 5-8) --------------------------------------
+
+F32_VS_PLAIN = 1e-6       # kernels 5-7, of max |a|: f32 sums in another order
+STRONG_VS_PLAIN = 1e-14   # kernel 8, of max |c|: same tree, rsqrt seeds may differ
+
+
+def _hierarchy(n=16, seed=7):
+    """tests/test_pallas_nbody.py:_hierarchy (a sun, planets with close moon
+    pairs, light far bodies)."""
+    rng = np.random.default_rng(seed)
+    au = 1.5e11
+    pos, mu = [np.zeros(3)], [1.33e20]
+    for i in range(3):
+        pp = rng.normal(size=3)
+        pp = pp / np.linalg.norm(pp) * au * (0.7 + i)
+        pos.append(pp)
+        mu.append(3e14 * (i + 1))
+        for m in range(2):
+            off = rng.normal(size=3)
+            off = off / np.linalg.norm(off) * 4e8 * (1 + 0.002 * m)
+            pos.append(pp + off)
+            mu.append(5e12)
+    while len(pos) < n:
+        pos.append(rng.normal(size=3) * au * 2)
+        mu.append(1e10)
+    return np.array(pos), np.array(mu)
+
+
+def _f32_inputs(pos, mu, dev):
+    return (torch.tensor(pos, device=dev).float(),
+            torch.tensor(mu, device=dev).float().reshape(1, -1))
+
+
+def _rel_rows(a, ref):
+    return ((a - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+
+
+@pytest.mark.parametrize("n", [1, 32, 1000, 4096])
+def test_kernel5_matches_plain_on_card(cuda_device, n):
+    """Kernel 5 against its plain version: <= 1e-6 of max |a|; one launch."""
+    p32, m32 = _f32_inputs(*_cloud(n, 11), cuda_device)
+    before = cuda_f32.pairwise_accel_f32.launches
+    k = cuda_f32.pairwise_accel_f32(p32, m32)
+    assert cuda_f32.pairwise_accel_f32.launches == before + 1
+    r = cuda_f32.pairwise_accel_f32_plain(p32, m32)
+    if n == 1:
+        assert not k.any() and not r.any()
+    else:
+        assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
+
+
+@pytest.mark.parametrize("n", [1, 32, 1000, 4096])
+def test_kernel6_matches_plain_on_card(cuda_device, n):
+    """Kernel 6 against its plain version: <= 1e-6 of max |a|; one launch."""
+    pos, mu = _cloud(n, 12)
+    ph, pl = cuda_nbody.split_f64(torch.tensor(pos, device=cuda_device), transpose=True)
+    m32 = torch.tensor(mu, device=cuda_device).float().reshape(1, -1)
+    before = cuda_mixed.pairwise_accel_mixed.launches
+    k = cuda_mixed.pairwise_accel_mixed(ph, pl, m32)
+    assert cuda_mixed.pairwise_accel_mixed.launches == before + 1
+    r = cuda_mixed.pairwise_accel_mixed_plain(ph, pl, m32)
+    if n == 1:
+        assert not k.any() and not r.any()
+    else:
+        assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
+
+
+@pytest.mark.parametrize("n", [32, 1000, 4096])
+def test_kernel7_matches_plain_on_card(cuda_device, n):
+    """Kernel 7 in both modes against its plain version (<= 1e-6 of max |a|),
+    and its rows form bitwise against the square form's row slices (ragged
+    row blocks included)."""
+    pos, mu = _cloud(n, 13)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=16)
+    mask = split.strong_pair_mask(idx, n)
+    p32, m32 = _f32_inputs(pos, mu, cuda_device)
+    no_diag = mask.clone()
+    no_diag.fill_diagonal_(0)
+    for m, diag in ((no_diag, False), (mask, True)):
+        before = cuda_f32.pairwise_accel_f32_masked.launches
+        k = cuda_f32.pairwise_accel_f32_masked(p32, m32, m, diag_in_mask=diag)
+        assert cuda_f32.pairwise_accel_f32_masked.launches == before + 1
+        r = cuda_f32.pairwise_accel_f32_masked_plain(p32, m32, m, diag_in_mask=diag)
+        assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
+    for r0, nl in ((0, n // 2), (n // 4, 100), (n - 7, 7)):
+        rows = cuda_f32.pairwise_accel_f32_masked_rows(p32, m32, mask[r0:r0 + nl].contiguous(),
+                                                       p32[r0:r0 + nl].contiguous())
+        assert torch.equal(rows, k[r0:r0 + nl])
+
+
+@pytest.mark.parametrize("n, k", [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40)])
+def test_kernel8_matches_plain_on_card(cuda_device, n, k):
+    """Kernel 8 against its plain version: <= 1e-14 of max |c| (K = 6 pads
+    to KP = 8 in front; K = 40 runs the instance with the stack in local
+    memory); the rows form bitwise against the square form's row slices."""
+    pos, mu = _hierarchy() if n == 16 else _cloud(n, 14)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=k)
+    ph, pl = cuda_nbody.split_f64(tp)
+    mh, ml = cuda_nbody.split_f64(tm)
+    before = cuda_split.strong_correction_pair.launches
+    kh, kl = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, idx)
+    assert cuda_split.strong_correction_pair.launches == before + 1
+    rh, rl = cuda_split.strong_correction_pair_plain(ph, pl, ph, pl, mh, ml, idx)
+    kc, rc = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
+    assert (kc - rc).abs().max() <= STRONG_VS_PLAIN * rc.abs().max()
+    sq = cuda_split._strong_correction_fast(tp, tm, idx)
+    for r0 in (0, n // 3):
+        nl = n - r0
+        rows = cuda_split._strong_correction_fast(tp, tm, idx[r0:].contiguous(), rows=tp[r0:])
+        assert rows.shape == (nl, 3) and torch.equal(rows, sq[r0:])
+
+
+def test_kernel8_out_of_range_index_gives_nan(cuda_device):
+    """An index outside [0, N) is not read: its receiver's correction is NaN,
+    every other receiver's is the in-range result bitwise."""
+    pos, mu = _cloud(64, 15)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=8)
+    ph, pl = cuda_nbody.split_f64(tp)
+    mh, ml = cuda_nbody.split_f64(tm)
+    good = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, idx)
+    bad_idx = idx.clone()
+    bad_idx[3, 5] = 64
+    bad_idx[40, 0] = -1
+    bad = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, bad_idx)
+    for g, b in zip(good, bad):
+        assert b[[3, 40]].isnan().all()
+        keep = torch.ones(64, dtype=torch.bool, device=cuda_device)
+        keep[[3, 40]] = False
+        assert torch.equal(b[keep], g[keep])
+
+
+def test_forcemode_reference_bars_on_card(cuda_device):
+    """The reference's bars for the modes, through the kernels: mixed < 3e-6
+    per body on the close pair; split < 2e-9 on the hierarchy (K = 6) and
+    < 4e-7 on the 64-body cloud (K = 8); all-strong K = N - 1 < 1e-14 (f64
+    correction) and < 1e-12 (two-float); two-float correction < 5e-12 of the
+    f64 one on the hierarchy."""
+    from ephemeris_explorer_tpu_torch.ops import nbody
+
+    dev = cuda_device
+    rng = np.random.default_rng(29)
+    pos = rng.normal(size=(16, 3)) * 1.0e6
+    pos[1] = pos[0] + np.array([40.1234567, 19.7654321, -9.87654321])
+    mu = rng.uniform(1.0e3, 1.0e5, size=16)
+    mu[0] = 1.0e7
+    tp, tm = torch.tensor(pos, device=dev), torch.tensor(mu, device=dev)
+    mh, ml = cuda_nbody.split_f64(tm.reshape(1, -1))
+    ref = cuda_nbody.pairwise_accel(tp, mh, ml)
+    ph, pl = cuda_nbody.split_f64(tp, transpose=True)
+    mixed = cuda_mixed.pairwise_accel_mixed(ph, pl, tm.float().reshape(1, -1)).double()
+    assert _rel_rows(mixed, ref) < 3e-6
+
+    def split_err(pos, mu, k, **kw):
+        tp, tm = torch.tensor(pos, device=dev), torch.tensor(mu, device=dev)
+        idx = split.strong_pair_indices(tp, tm, k=k)
+        a = cuda_split.pairwise_accel_split(tp, tm, idx, split.strong_pair_mask(idx, len(pos)),
+                                            **kw)
+        return _rel_rows(a, nbody.pairwise_accel(tp, tm))
+
+    rng = np.random.default_rng(11)
+    cloud = rng.normal(size=(64, 3)) * 1e6, rng.uniform(1e3, 1e5, size=64)
+    rng = np.random.default_rng(3)
+    small = rng.normal(size=(16, 3)) * 1e6, rng.uniform(1e3, 1e5, size=16)
+    assert split_err(*_hierarchy(), 6) < 2e-9
+    assert split_err(*cloud, 8) < 4e-7
+    assert split_err(*small, 15, corr="f64") < 1e-14
+    assert split_err(*small, 15) < 1e-12
+    tp, tm = (torch.tensor(x, device=dev) for x in _hierarchy())
+    idx = split.strong_pair_indices(tp, tm, k=6)
+    fast = cuda_split._strong_correction_fast(tp, tm, idx)
+    assert _rel_rows(fast, split._strong_correction(tp, tm, idx)) < 5e-12
+
+
+def test_forcemode_wrappers_check_inputs(cuda_device):
+    """Wrong dtype, shape or layout raises before any launch."""
+    p32, m32 = _f32_inputs(*_cloud(16, 8), cuda_device)
+    mask = torch.zeros((16, 16), dtype=torch.int8, device=cuda_device)
+    idx = torch.zeros((16, 2), dtype=torch.int32, device=cuda_device)
+    mh = m32.reshape(-1).contiguous()
+    counters = (cuda_f32.pairwise_accel_f32, cuda_f32.pairwise_accel_f32_masked,
+                cuda_mixed.pairwise_accel_mixed, cuda_split.strong_correction_pair)
+    before = [f.launches for f in counters]
+    with pytest.raises(TypeError):
+        cuda_f32.pairwise_accel_f32(p32.double(), m32)
+    with pytest.raises(ValueError):
+        cuda_f32.pairwise_accel_f32(p32.t().contiguous().t(), m32)
+    with pytest.raises(TypeError):
+        cuda_f32.pairwise_accel_f32_masked(p32, m32, mask.bool())
+    with pytest.raises(ValueError):
+        cuda_f32.pairwise_accel_f32_masked_rows(p32, m32, mask[:8], p32[:4].contiguous())
+    with pytest.raises(ValueError):
+        cuda_mixed.pairwise_accel_mixed(p32, p32, m32)
+    with pytest.raises(TypeError):
+        cuda_split.strong_correction_pair(p32, p32, p32, p32, mh, mh, idx.long())
+    with pytest.raises(ValueError):
+        cuda_split.strong_correction_pair(p32, p32, p32[:8], p32, mh, mh, idx)
+    assert [f.launches for f in counters] == before
