@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``
-(one ``nvcc`` per source, started together), holds each against its plain
-PyTorch version on the card, and drives the port's paths through them:
+Builds the port's CUDA kernels from ``ephemeris_explorer_tpu_torch/csrc``
+(one ``nvcc`` per source, started together), holds each kernel form against
+its plain PyTorch version on the card, and drives the port's paths through
+them:
 
 * the main path, QT12 generation of fitted, evaluable ephemerides at
   N = 4096 through kernels 1 and 2, and the bundled full_solar_system scene
@@ -19,11 +20,19 @@ PyTorch version on the card, and drives the port's paths through them:
   (two-float strong-pair correction) against their plain versions and the
   JAX package's bars for the modes (phases 12-15), and the ladder at
   N = 4096 as ``bench.py:438-604`` drives it, 400 force evaluations per
-  mode, with each mode's error against native f64 (path C, phase 16).
+  mode, with each mode's error against native f64 (path C, phase 16);
+* ensembles and the row decomposition: kernel 1's ensemble and rows forms,
+  kernel 3's rows form and kernel 9 against their plain versions and the
+  square forms (phases 17-19), ``ensemble16x4096`` as ``bench.py:379-435``
+  drives it through kernel 1's ensemble form and kernel 2 (path D, phase
+  20), and the row-sharded scans and the data-parallel ensemble at one NCCL
+  rank, bitwise against the unsharded ones (path E, phase 21).
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; the line before the last is the
-kernels' JSON record and the last line is ``{"ok": true, "device": {...}}``.
+kernels' JSON record (each form's launches on its path, error against its
+plain version, times, and the least time the card could take,
+:func:`bound_of`) and the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits nonzero at once.  It imports no JAX.
 
@@ -49,7 +58,7 @@ FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
 EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
-ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16"
+ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21"
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -110,6 +119,79 @@ LADDER_BOUNDS = {"f32": 1e-4, "mixed": 1e-6, "split": 4e-7}
 # the ulp level; the multistep grows that over 4320 steps to ~1e-13 of the
 # positions.  Coefficients are compared in sample space (see _coeff_err).
 FSS_BOUND = 1e-10
+# Slice 4: ensembles and the row decomposition.  Path D is bench.py:379-435's
+# ensemble16x4096: cluster seeds 0..15 with mu from seed 0, QT12, h = 600 s,
+# in 50-step scans.  Its f64 scan (kernel 1's ensemble form, f64 in and out)
+# is held to per-member native f64 after EARLY_STEPS at EARLY_BOUND, like the
+# flagship step; its pair-native scan to the single-system fused step
+# bitwise.  Kernel 9 is within 3e-13 per body of the f64 correction
+# (test_strong_correction_df64_matches_f64's bar).
+ENSEMBLE = 16
+ENS_SCAN_STEPS = 50
+ENS_TIMED_SCANS = 2
+DD_VS_F64 = 3e-13
+
+
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3
+# 3.35 TB/s; f32 67 TFLOP/s and f64 34 TFLOP/s outside the tensor cores, each
+# counting an FMA as two operations.  The kernels are built with --fmad=false, so every add and
+# every multiply executes alone: one operation per lane per cycle, half those
+# rates.  An rsqrt counts as one operation.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float32": 67e12 / 2, "float64": 34e12 / 2}
+
+
+def op_counter():
+    """A dispatch mode that counts the element operations of the aten calls
+    under it, by dtype: each add, sub, mul, div, neg, rsqrt and sqrt counts
+    its output's elements, each sum its input's.  Run over a kernel's plain
+    version, which repeats the kernel's arithmetic op for op, it counts the
+    operations the kernel does on those inputs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    elementwise = {aten.add, aten.sub, aten.mul, aten.div, aten.neg, aten.rsqrt, aten.sqrt}
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            packet = func.overloadpacket
+            ref = out if packet in elementwise else args[0] if packet is aten.sum else None
+            if isinstance(ref, torch.Tensor):
+                key = str(ref.dtype).replace("torch.", "")
+                self.ops[key] = self.ops.get(key, 0) + ref.numel()
+            return out
+
+    return OpCount()
+
+
+def bound_of(plain, tensors) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    the bytes of ``tensors`` (its inputs and outputs, each moved once) over
+    the memory rate, and the operations ``plain()`` does over the peak rate
+    of their type."""
+    with op_counter() as count:
+        plain()
+    unique = {id(t): t for t in tensors}.values()
+    nbytes = sum(t.numel() * t.element_size() for t in unique)
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[dt] for dt, n in count.ops.items() if dt in PEAK_OPS_S)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": {dt: n for dt, n in count.ops.items() if dt in PEAK_OPS_S}}
+
+
+def kernel_record(max_abs_err, ms, plain_ms, bound) -> dict:
+    """A kernel's entry of the kernels line, less its launches (no single
+    PyTorch call computes any of these kernels' functions: library_ms is
+    null)."""
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
 
 
 def check(ok: bool, what: str) -> None:
@@ -206,6 +288,7 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_mixed, cuda_split, split
     from ephemeris_explorer_tpu_torch.ops import expansion as ex
     from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
+    from ephemeris_explorer_tpu_torch.parallel import sharding as sh
 
     launchers = {"accel_df64": cuda_nbody.pairwise_accel_df64,
                  "elm2f_update": cuda_elm2.elm2f_update,
@@ -214,7 +297,11 @@ def main(argv=None) -> int:
                  "accel_f32": cuda_f32.pairwise_accel_f32,
                  "accel_mixed": cuda_mixed.pairwise_accel_mixed,
                  "accel_f32_masked": cuda_f32.pairwise_accel_f32_masked,
-                 "strong_corr": cuda_split.strong_correction_pair}
+                 "strong_corr": cuda_split.strong_correction_pair,
+                 "accel_df64_ensemble": cuda_nbody.pairwise_accel_df64_ensemble,
+                 "accel_df64_rows": cuda_nbody.pairwise_accel_df64_rows,
+                 "accel_limbs3_rows": cuda_limbs.pairwise_accel_limbs_pair_rows,
+                 "strong_corr_dd": cuda_split.strong_correction_dd}
 
     def reset_counts():
         for fn in launchers.values():
@@ -288,6 +375,11 @@ def main(argv=None) -> int:
     mu_dev = torch.as_tensor(mu, dtype=f64, device=dev)
     mu_hi, mu_lo = cuda_nbody.split_f64(mu_dev.reshape(1, -1))
 
+    def accel_pair_square(t, y: TwoFloat) -> TwoFloat:
+        """The single-system fused force: kernel 1's square form on an (N, 3) pair."""
+        return TwoFloat(*cuda_nbody.pairwise_accel_df64(
+            y.hi.t().contiguous(), y.lo.t().contiguous(), mu_hi, mu_lo))
+
     # -- phase 3: kernel 1 against its plain version --------------------------
     if 3 in phases:
         fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
@@ -301,7 +393,8 @@ def main(argv=None) -> int:
             m_dev = torch.as_tensor(m, dtype=f64, device=dev)
             ph, pl = cuda_nbody.split_f64(p_dev, transpose=True)
             mh, ml = cuda_nbody.split_f64(m_dev.reshape(1, -1))
-            k = cuda_nbody.combine_f64(*cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml))
+            raw = cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml)
+            k = cuda_nbody.combine_f64(*raw)
             r = cuda_nbody.combine_f64(*cuda_nbody.pairwise_accel_df64_plain(ph, pl, mh, ml))
             ref = nbody.pairwise_accel(p_dev, m_dev)
             torch.cuda.synchronize()
@@ -319,7 +412,10 @@ def main(argv=None) -> int:
                         "rel_err_vs_f64": e_f64, "f64_bound": f64_bound, "kernel_us": kms * 1e3,
                         "kernel_device_us": gms * 1e3, "plain_us": pms * 1e3})
             if name == "cluster4096":
-                record["accel_df64"] = {"max_abs_err": abs_err, "ms": kms, "plain_ms": pms}
+                b = bound_of(lambda: cuda_nbody.pairwise_accel_df64_plain(ph, pl, mh, ml),
+                             [ph, pl, mh, ml, *raw])
+                out[-1]["bound"] = b
+                record["accel_df64"] = kernel_record(abs_err, kms, pms, b)
         print(json.dumps({"phase": 3, "kernel": "accel_df64", "cases": out, "card": smi}))
 
     # QT12 startup at N=4096 in native f64 (shared by phases 4 and 5)
@@ -364,7 +460,10 @@ def main(argv=None) -> int:
                         "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
                         "plain_us": pms * 1e3})
             if name == "cluster4096":
-                record["elm2f_update"] = {"max_abs_err": diff, "ms": kms, "plain_ms": pms}
+                b = bound_of(lambda: cuda_elm2.elm2f_update_plain(coef, c_y, f.ys, f.dd),
+                             [*f.ys, *f.dd, *yk])
+                out[-1]["bound"] = b
+                record["elm2f_update"] = kernel_record(diff, kms, pms, b)
         print(json.dumps({"phase": 4, "kernel": "elm2f_update", "cases": out, "card": smi}))
 
     # -- phase 5: flagship step ----------------------------------------------
@@ -487,7 +586,8 @@ def main(argv=None) -> int:
         e_gpu = eph.generate_ephemeris(fss.state, fss.settings, year, device=dev)
         torch.cuda.synchronize()
         t_year = time.perf_counter() - t0
-        e_cpu = eph.generate_ephemeris(fss.state, fss.settings, port.Duration.from_days(30))
+        e_cpu = eph.generate_ephemeris(fss.state, fss.settings, port.Duration.from_days(30),
+                                       device="cpu")
         c_cpu = {n: e_cpu[n].coeffs for n in e_cpu.names}
         c_gpu = {n: e_gpu[n].coeffs[: c_cpu[n].shape[0]] for n in e_cpu.names}
         err = _coeff_err(c_cpu, c_gpu, fss.settings)
@@ -536,7 +636,8 @@ def main(argv=None) -> int:
             limbs = ex.from_f64_host(p, dev)[:3]
             m_dev = torch.as_tensor(m, dtype=f64, device=dev)
             mh, ml = cuda_nbody.split_f64(m_dev.reshape(1, -1))
-            k = cuda_nbody.combine_f64(*cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml))
+            raw = cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml)
+            k = cuda_nbody.combine_f64(*raw)
             r = cuda_nbody.combine_f64(*cuda_limbs.pairwise_accel_limbs_pair_plain(*limbs, mh, ml))
             ref = nbody.pairwise_accel(torch.as_tensor(p, dtype=f64, device=dev), m_dev)
             torch.cuda.synchronize()
@@ -554,7 +655,10 @@ def main(argv=None) -> int:
                         "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
                         "plain_us": pms * 1e3})
             if name == "cluster4096":
-                record["accel_limbs3"] = {"max_abs_err": abs_err, "ms": kms, "plain_ms": pms}
+                b = bound_of(lambda: cuda_limbs.pairwise_accel_limbs_pair_plain(*limbs, mh, ml),
+                             [*limbs, mh, ml, *raw])
+                out[-1]["bound"] = b
+                record["accel_limbs3"] = kernel_record(abs_err, kms, pms, b)
         print(json.dumps({"phase": 8, "kernel": "accel_limbs3", "cases": out,
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
@@ -607,7 +711,10 @@ def main(argv=None) -> int:
                             "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
                             "plain_us": pms * 1e3})
                 if name == "cluster4096" and precise:
-                    record["elm2q_update"] = {"max_abs_err": diff, "ms": kms, "plain_ms": pms}
+                    b = bound_of(lambda: cuda_elm2q.elm2q_update_plain(*tables, c.ys, c.dd, precise),
+                                 [*c.ys, *c.dd, *yk])
+                    out[-1]["bound"] = b
+                    record["elm2q_update"] = kernel_record(diff, kms, pms, b)
         print(json.dumps({"phase": 9, "kernel": "elm2q_update", "cases": out,
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
@@ -811,9 +918,11 @@ def main(argv=None) -> int:
     def rel_rows(a, ref):
         return ((a.double() - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
 
-    def against_plain(name, kernel, plain, bound, combine=None):
-        """Kernel vs plain on one input: checks the bound, times both."""
+    def against_plain(name, kernel, plain, bound, inputs, combine=None):
+        """Kernel vs plain on one input: checks the bound, times both; on
+        cluster4096 also the least time the card could take."""
         k, r = kernel(), plain()
+        outputs = list(k) if combine is not None else [k]
         if combine is not None:
             k, r = combine(*k), combine(*r)
         torch.cuda.synchronize()
@@ -821,15 +930,18 @@ def main(argv=None) -> int:
         scale = r.abs().max().item()
         check(bool(torch.isfinite(k).all()), f"{name}: kernel output not finite")
         check(abs_err <= bound * scale, f"{name}: kernel vs plain {abs_err / scale} > {bound}")
-        return {"input": name, "rel_err_vs_plain": abs_err / scale, "max_abs_err": abs_err,
+        case = {"input": name, "rel_err_vs_plain": abs_err / scale, "max_abs_err": abs_err,
                 "bitwise": bool(torch.equal(k, r)), "kernel_us": cuda_ms(kernel, 20) * 1e3,
                 "kernel_device_us": graph_ms(kernel, 20) * 1e3,
                 "plain_us": cuda_ms(plain, 3, 1) * 1e3}
+        if name == "cluster4096":
+            case["bound"] = bound_of(plain, [*inputs, *outputs])
+        return case
 
     def keep(kernel_name, case):
         if case["input"] == "cluster4096":
-            record[kernel_name] = {"max_abs_err": case["max_abs_err"], "ms": case["kernel_us"] / 1e3,
-                                   "plain_ms": case["plain_us"] / 1e3}
+            record[kernel_name] = kernel_record(case["max_abs_err"], case["kernel_us"] / 1e3,
+                                                case["plain_us"] / 1e3, case["bound"])
 
     # -- phase 12: kernel 5 against its plain version --------------------------
     if 12 in phases:
@@ -839,7 +951,7 @@ def main(argv=None) -> int:
             p32, m32 = f32_in(p, m)
             out.append(against_plain(name, lambda: cuda_f32.pairwise_accel_f32(p32, m32),
                                      lambda: cuda_f32.pairwise_accel_f32_plain(p32, m32),
-                                     F32_VS_PLAIN))
+                                     F32_VS_PLAIN, [p32, m32]))
             keep("accel_f32", out[-1])
         # test_f32_fast_mode_error_envelope's bar: within 1e-5 of kernel 1
         p, m = seeded_cloud(64, 21)
@@ -863,7 +975,7 @@ def main(argv=None) -> int:
             m32 = tm.float().reshape(1, -1)
             out.append(against_plain(name, lambda: cuda_mixed.pairwise_accel_mixed(ph, pl, m32),
                                      lambda: cuda_mixed.pairwise_accel_mixed_plain(ph, pl, m32),
-                                     F32_VS_PLAIN))
+                                     F32_VS_PLAIN, [ph, pl, m32]))
             keep("accel_mixed", out[-1])
         # test_mixed_mode_error_envelope's bars, per body against kernel 1
         p, m = close_pair()
@@ -898,7 +1010,7 @@ def main(argv=None) -> int:
                 case = against_plain(
                     name, lambda: cuda_f32.pairwise_accel_f32_masked(p32, m32, mk, diag),
                     lambda: cuda_f32.pairwise_accel_f32_masked_plain(p32, m32, mk, diag_in_mask=diag),
-                    F32_VS_PLAIN)
+                    F32_VS_PLAIN, [p32, m32, mk])
                 case["diag_in_mask"] = diag
                 out.append(case)
             keep("accel_f32_masked", case)
@@ -927,7 +1039,7 @@ def main(argv=None) -> int:
             args = (ph, pl, ph, pl, mh, ml, idx)
             case = against_plain(name, lambda: cuda_split.strong_correction_pair(*args),
                                  lambda: cuda_split.strong_correction_pair_plain(*args),
-                                 STRONG_VS_PLAIN, combine=cuda_nbody.combine_f64)
+                                 STRONG_VS_PLAIN, args, combine=cuda_nbody.combine_f64)
             case["k"] = k
             sq = cuda_split._strong_correction_fast(tp, tm, idx)
             r0 = len(p) // 3
@@ -964,12 +1076,6 @@ def main(argv=None) -> int:
               and int(mask.sum()) == 16 * 6 and bool(mask.diagonal().all())
               and 3 in sel[2] and 2 in sel[3] and 0 in sel[2] and 0 in sel[3],
               "strong-pair selection invariants")
-        try:  # kernel 9 is not ported: corr="dd" must not run another correction
-            cuda_split.pairwise_accel_split(tp, tm, idx, split.strong_pair_mask(idx, 16), corr="dd")
-        except NotImplementedError:
-            pass
-        else:
-            check(False, 'corr="dd" did not raise')
         print(json.dumps({"phase": 15, "kernel": "strong_corr", "cases": out,
                           "bars": {k: {"measured": v[0], "bar": v[1]} for k, v in bars.items()},
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
@@ -1024,34 +1130,361 @@ def main(argv=None) -> int:
                           "evals_per_mode": LADDER_EVALS, "modes": result,
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
+
+    # -- slice 4: ensembles and the row decomposition ---------------------------
+    def member_inputs(e, n):
+        """Cluster seeds 0..e-1 as (E, 3, N) split positions, mu from seed 0."""
+        pos_e = torch.as_tensor(np.stack([_cluster(n, seed=i)[0] for i in range(e)]), dtype=f64,
+                                device=dev)
+        mh_, ml_ = cuda_nbody.split_f64(torch.as_tensor(_cluster(n)[2], dtype=f64,
+                                                        device=dev).reshape(1, -1))
+        return (*cuda_nbody.split_f64(pos_e.transpose(1, 2)), mh_, ml_)
+
+    def timed(kernel, plain, reps=20):
+        return {"kernel_us": cuda_ms(kernel, reps) * 1e3,
+                "kernel_device_us": graph_ms(kernel, reps) * 1e3,
+                "plain_us": cuda_ms(plain, 2, 1) * 1e3}
+
+    # -- phase 17: kernel 1's ensemble and rows forms -------------------------
+    if 17 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for e, n in ((ENSEMBLE, N_BODIES), (3, 1000), (2, 32)):
+            ph, pl, mh, ml = member_inputs(e, n)
+            kh, kl = cuda_nbody.pairwise_accel_df64_ensemble(ph, pl, mh, ml)
+            rh, rl = cuda_nbody.pairwise_accel_df64_ensemble_plain(ph, pl, mh, ml)
+            square = [cuda_nbody.pairwise_accel_df64(ph[m].contiguous(), pl[m].contiguous(), mh, ml)
+                      for m in range(e)]
+            torch.cuda.synchronize()
+            k, r = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
+            abs_err = (k - r).abs().max().item()
+            members = all(torch.equal(kh[m], sq[0]) and torch.equal(kl[m], sq[1])
+                          for m, sq in enumerate(square))
+            check(bool(torch.isfinite(k).all()), f"kernel 1 ensemble non-finite at {e} x {n}")
+            check(abs_err <= KERNEL1_VS_PLAIN * r.abs().max().item(),
+                  f"kernel 1 ensemble vs plain at {e} x {n}: {abs_err}")
+            check(members, f"kernel 1 ensemble at {e} x {n}: a member is not the square kernel's")
+            case = {"form": "ensemble", "e": e, "n": n, "max_abs_err": abs_err,
+                    "rel_err_vs_plain": abs_err / r.abs().max().item(), "members_bitwise": members,
+                    **timed(lambda: cuda_nbody.pairwise_accel_df64_ensemble(ph, pl, mh, ml),
+                            lambda: cuda_nbody.pairwise_accel_df64_ensemble_plain(ph, pl, mh, ml))}
+            if e == ENSEMBLE:
+                # the same work as 16 square calls, for the cost of one launch
+                case["square_x16_device_us"] = graph_ms(
+                    lambda: [cuda_nbody.pairwise_accel_df64(ph[m], pl[m], mh, ml)
+                             for m in range(e)], 5) * 1e3
+                case["bound"] = bound_of(
+                    lambda: cuda_nbody.pairwise_accel_df64_ensemble_plain(ph, pl, mh, ml),
+                    [ph, pl, mh, ml, kh, kl])
+                record["accel_df64_ensemble"] = kernel_record(
+                    abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        for n in (N_BODIES, 1000, 32):
+            p_dev = torch.as_tensor(_cluster(n, seed=3)[0], dtype=f64, device=dev)
+            ph, pl = cuda_nbody.split_f64(p_dev, transpose=True)
+            mh, ml = cuda_nbody.split_f64(torch.as_tensor(_cluster(n, seed=3)[2], dtype=f64,
+                                                          device=dev).reshape(1, -1))
+            sq = cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml)
+            for r0, nl in ((0, n), (n // 4, n // 4), (n // 3 + 1, n - n // 3 - 1)):
+                rows = cuda_nbody.split_f64(p_dev[r0:r0 + nl])
+                got = cuda_nbody.pairwise_accel_df64_rows(ph, pl, mh, ml, *rows, r0)
+                check(torch.equal(got[0], sq[0][r0:r0 + nl]) and torch.equal(got[1], sq[1][r0:r0 + nl]),
+                      f"kernel 1 rows form at {r0}:{r0 + nl} of {n} is not the square's slice")
+            # at the main path's shape (path E at one rank: NL = N, row0 = 0)
+            rows = cuda_nbody.split_f64(p_dev)
+            got = cuda_nbody.pairwise_accel_df64_rows(ph, pl, mh, ml, *rows, 0)
+            plain = cuda_nbody.pairwise_accel_df64_rows_plain(ph, pl, mh, ml, *rows, 0)
+            abs_err = (cuda_nbody.combine_f64(*got) - cuda_nbody.combine_f64(*plain)).abs().max().item()
+            case = {"form": "rows", "n": n, "row0s_bitwise_to_square": True, "max_abs_err": abs_err,
+                    **timed(lambda: cuda_nbody.pairwise_accel_df64_rows(ph, pl, mh, ml, *rows, 0),
+                            lambda: cuda_nbody.pairwise_accel_df64_rows_plain(ph, pl, mh, ml,
+                                                                              *rows, 0))}
+            if n == N_BODIES:
+                case["bound"] = bound_of(
+                    lambda: cuda_nbody.pairwise_accel_df64_rows_plain(ph, pl, mh, ml, *rows, 0),
+                    [ph, pl, mh, ml, *rows, *got])
+                record["accel_df64_rows"] = kernel_record(
+                    abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        print(json.dumps({"phase": 17, "kernel": "accel_df64 ensemble and rows forms",
+                          "cases": out, "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 18: kernel 3's rows form -----------------------------------------
+    if 18 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for n in (N_BODIES, 1000, 32):
+            p_np, _, m_np = _cluster(n, seed=4)
+            limbs = ex.from_f64_host(p_np, dev)[:3]
+            mh, ml = cuda_nbody.split_f64(torch.as_tensor(m_np, dtype=f64, device=dev).reshape(1, -1))
+            src = [l.t().contiguous() for l in limbs]
+            sq = cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml)
+            for r0, nl in ((0, n), (n // 4, n // 4), (n // 3 + 1, n - n // 3 - 1)):
+                recv = [l[r0:r0 + nl].contiguous() for l in limbs]
+                got = cuda_limbs.pairwise_accel_limbs_pair_rows(*src, mh, ml, *recv, r0)
+                check(torch.equal(got[0], sq[0][r0:r0 + nl]) and torch.equal(got[1], sq[1][r0:r0 + nl]),
+                      f"kernel 3 rows form at {r0}:{r0 + nl} of {n} is not the square's slice")
+            got = cuda_limbs.pairwise_accel_limbs_pair_rows(*src, mh, ml, *limbs, 0)
+            plain = cuda_limbs.pairwise_accel_limbs_pair_rows_plain(*src, mh, ml, *limbs, 0)
+            k, r = cuda_nbody.combine_f64(*got), cuda_nbody.combine_f64(*plain)
+            abs_err = (k - r).abs().max().item()
+            check(abs_err <= KERNEL3_VS_PLAIN * r.abs().max().item(),
+                  f"kernel 3 rows form vs plain at {n}: {abs_err}")
+            case = {"form": "rows", "n": n, "row0s_bitwise_to_square": True, "max_abs_err": abs_err,
+                    "rel_err_vs_plain": abs_err / r.abs().max().item(),
+                    **timed(lambda: cuda_limbs.pairwise_accel_limbs_pair_rows(*src, mh, ml, *limbs, 0),
+                            lambda: cuda_limbs.pairwise_accel_limbs_pair_rows_plain(
+                                *src, mh, ml, *limbs, 0))}
+            if n == N_BODIES:
+                case["bound"] = bound_of(
+                    lambda: cuda_limbs.pairwise_accel_limbs_pair_rows_plain(*src, mh, ml, *limbs, 0),
+                    [*src, mh, ml, *limbs, *got])
+                record["accel_limbs3_rows"] = kernel_record(
+                    abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        print(json.dumps({"phase": 18, "kernel": "accel_limbs3 rows form", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 19: kernel 9, and the split mode with corr="dd" ------------------
+    if 19 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        dd_cases = [("hierarchy", *hierarchy(), 6), ("ragged1000", *_cluster(1000, seed=1)[::2], 16)]
+        dd_cases += [("cluster4096", *_cluster(N_BODIES)[::2], k) for k in (6, 40, 16)]
+        for name, p, m, k in dd_cases:
+            tp, tm = dev64(p, m)
+            idx = split.strong_pair_indices(tp, tm, k=k)
+            kh, kl = cuda_split.strong_correction_dd(tp, tm, idx)
+            rh, rl = cuda_split.strong_correction_dd_plain(tp, tm, idx)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(kh, rh) and torch.equal(kl, rl))
+            kc, rc = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
+            abs_err = (kc - rc).abs().max().item()
+            vs_f64 = rel_rows(kc, split._strong_correction(tp, tm, idx))
+            check(bool(torch.isfinite(kc).all()), f"kernel 9 non-finite on {name}")
+            check(bitwise, f"kernel 9 vs plain on {name} (K = {k}): not bitwise, {abs_err}")
+            check(vs_f64 <= DD_VS_F64, f"kernel 9 vs the f64 correction on {name}: {vs_f64}")
+            case = {"input": name, "n": len(p), "k": k, "bitwise": bitwise, "max_abs_err": abs_err,
+                    "per_body_vs_f64": vs_f64,
+                    **timed(lambda: cuda_split.strong_correction_dd(tp, tm, idx),
+                            lambda: cuda_split.strong_correction_dd_plain(tp, tm, idx))}
+            if name == "cluster4096" and k == STRONG_K:
+                case["bound"] = bound_of(lambda: cuda_split.strong_correction_dd_plain(tp, tm, idx),
+                                         [tp, tm, idx, kh, kl])
+                record["strong_corr_dd"] = kernel_record(
+                    abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        # the split mode with the dd correction at N = 4096, K = 16: its error
+        # against native f64, and LADDER_EVALS evaluations as path C runs "split"
+        p64, m64 = dev64(pos, mu)
+        idx = split.strong_pair_indices(p64, m64, k=STRONG_K)
+        mask = split.strong_pair_mask(idx, N_BODIES)
+        ref = nbody.pairwise_accel(p64, m64)
+        errs = {c: (cuda_split.pairwise_accel_split(p64, m64, idx, mask, corr=c) - ref).abs().max().item()
+                / ref.abs().max().item() for c in ("dd", "fast", "f64")}
+        check(errs["dd"] <= LADDER_BOUNDS["split"], f"split mode (dd) vs f64: {errs['dd']}")
+
+        def dd_loop(p, evals):
+            for _ in range(evals):
+                p = p + cuda_split.pairwise_accel_split(p, m64, idx, mask, corr="dd") * 1e-30
+            return p
+
+        dd_loop(p64, 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        end = dd_loop(p64, LADDER_EVALS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches_dd = read_counts()
+        check(launches_dd["strong_corr_dd"] == LADDER_EVALS
+              and launches_dd["accel_f32_masked"] == LADDER_EVALS
+              and launches_dd["strong_corr"] == 0, f"split mode (dd) launches {launches_dd}")
+        check(bool(torch.isfinite(end).all()), "split mode (dd) state not finite")
+        record.setdefault("strong_corr_dd", {})["launches"] = launches_dd["strong_corr_dd"]
+        print(json.dumps({"phase": 19, "kernel": "strong_corr_dd", "cases": out,
+                          "split_rel_err_vs_f64": errs, "split_bound": LADDER_BOUNDS["split"],
+                          "dd_loop": {"evals": LADDER_EVALS, "launches": launches_dd,
+                                      "path_s": elapsed,
+                                      "force_evals_per_s_x_bodies": N_BODIES * LADDER_EVALS / elapsed},
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # path D's start: the ensemble startup through kernel 1's ensemble form
+    # (shared by phases 20 and 21)
+    ens_cache = {}
+
+    def ensemble_start():
+        if "carry0" not in ens_cache:
+            ens_pos = np.stack([_cluster(N_BODIES, seed=i)[0] for i in range(ENSEMBLE)])
+            ens_vel = np.stack([_cluster(N_BODIES, seed=i)[1] for i in range(ENSEMBLE)])
+            ens_cache["carry0"] = sh.init_fused_ensemble_carry(tab, mu, 0.0, ens_pos, ens_vel, H,
+                                                               device=dev)
+            run25, to_f = sh.make_fused_ensemble_scan_f(tab, mu, H, EARLY_STEPS, device=dev)
+            ens_cache["f0"] = to_f(ens_cache["carry0"])
+            ens_cache["f25"] = run25(ens_cache["f0"])
+            torch.cuda.synchronize()
+        return ens_cache
+
+    # -- phase 20: path D, ensemble16x4096 ---------------------------------------
+    if 20 in phases:
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        start = ensemble_start()
+        t_startup = time.perf_counter() - t0
+        run50, _ = sh.make_fused_ensemble_scan_f(tab, mu, H, ENS_SCAN_STEPS, device=dev)
+        c = run50(start["f0"])  # warm-up scan
+        torch.cuda.synchronize()
+        reset_counts()
+        scan_s = []
+        for _ in range(ENS_TIMED_SCANS):
+            t0 = time.perf_counter()
+            c = run50(c)
+            torch.cuda.synchronize()
+            scan_s.append(time.perf_counter() - t0)
+        launches_d = read_counts()
+        steps = ENS_SCAN_STEPS * ENS_TIMED_SCANS
+        check(launches_d["accel_df64_ensemble"] == steps and launches_d["elm2f_update"] == steps
+              and sum(launches_d.values()) == 2 * steps,
+              f"path D: launches {launches_d}, expected {steps} each of kernels 1-ensemble and 2")
+        y_end = c.ys.hi[0].to(f64) + c.ys.lo[0].to(f64)
+        check(bool(torch.isfinite(y_end).all() and torch.isfinite(c.dy).all()),
+              "path D state non-finite")
+        record.setdefault("accel_df64_ensemble", {})["launches"] = launches_d["accel_df64_ensemble"]
+
+        # members 0 and 15 after EARLY_STEPS against the single-system fused step
+        f25 = start["f25"]
+        c0 = start["carry0"]
+        members = {}
+        for m in (0, ENSEMBLE - 1):
+            cm = ms.elm2_f_from(ms.ELM2Carry(t=c0.t, ys=c0.ys[:, m], ddys=c0.ddys[:, m], dy=c0.dy[m]))
+            for _ in range(EARLY_STEPS):
+                cm = ms.elm2_step_f(tab, accel_pair_square, H, cm)
+            members[m] = all(torch.equal(a[:, m], b) for a, b in
+                             ((f25.ys.hi, cm.ys.hi), (f25.ys.lo, cm.ys.lo),
+                              (f25.dd.hi, cm.dd.hi), (f25.dd.lo, cm.dd.lo)))
+            check(members[m], f"path D member {m} after {EARLY_STEPS} steps is not the "
+                              "single-system fused scan")
+        # the f64 ensemble scan (kernel 1's ensemble form, f64 in and out)
+        # against per-member native f64
+        run64 = sh.make_fused_ensemble_scan(tab, mu, H, EARLY_STEPS, device=dev)
+        e64 = run64(c0)
+        worst = 0.0
+        for m in range(ENSEMBLE):
+            cm = ms.ELM2Carry(t=c0.t, ys=c0.ys[:, m], ddys=c0.ddys[:, m], dy=c0.dy[m])
+            for _ in range(EARLY_STEPS):
+                cm = ms.elm2_step(tab, lambda t, y: nbody.pairwise_accel(y, mu_dev), H, cm,
+                                  with_velocity=False)
+            worst = max(worst, ((e64.ys[0, m] - cm.ys[0]).abs().max() / cm.ys[0].abs().max()).item())
+        check(worst <= EARLY_BOUND, f"path D f64 ensemble scan vs native f64: {worst}")
+        best = min(scan_s)
+        print(json.dumps({
+            "phase": 20, "path": "D", "config": "ensemble16x4096", "e": ENSEMBLE, "n": N_BODIES,
+            "h_s": H, "scan_steps": ENS_SCAN_STEPS, "timed_scans": ENS_TIMED_SCANS,
+            "scan_s": scan_s, "startup_s": t_startup,
+            "body_steps_per_s": ENSEMBLE * N_BODIES * steps / sum(scan_s),
+            "best_scan_body_steps_per_s": ENSEMBLE * N_BODIES * ENS_SCAN_STEPS / best,
+            "us_per_step": sum(scan_s) / steps * 1e6, "launches": launches_d,
+            "launches_per_step": sum(launches_d.values()) / steps,
+            f"members_bitwise_after_{EARLY_STEPS}": {str(k): v for k, v in members.items()},
+            f"f64_scan_rel_diff_vs_native_after_{EARLY_STEPS}": worst, "bound": EARLY_BOUND,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
+    # -- phase 21: path E, the row decomposition at one rank ---------------------
+    if 21 in phases:
+        import torch.distributed as dist
+
+        t_phase = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            mesh = sh.make_mesh(1, 1)
+            check(mesh.device_type == "cuda", f"make_mesh's default device is {mesh.device_type}")
+            f0 = ms.elm2_f_from(ms.elm2_init(tab, lambda t, y: nbody.pairwise_accel(y, mu_dev), 0.0,
+                                             torch.as_tensor(pos, dtype=f64, device=dev),
+                                             torch.as_tensor(vel, dtype=f64, device=dev), H))
+            cl_limbs, cl_pair = limb_forces(mu_dev)
+            qf0 = ms.elm2_qf_from_q(ms.elm2_init_q(
+                tab, None, 0.0, torch.as_tensor(pos, dtype=f64, device=dev),
+                torch.as_tensor(vel, dtype=f64, device=dev), H, accel_limbs=cl_limbs))
+            p64, m64 = dev64(pos, mu)
+            ens = ensemble_start()
+            torch.cuda.synchronize()
+
+            # the sharded path, counts reset just before and read just after
+            reset_counts()
+            t0 = time.perf_counter()
+            run_f, _ = sh.make_rowsharded_scan_f(mesh, tab, mu, H, EARLY_STEPS)
+            out_f = run_f(f0)
+            run_qf, _ = sh.make_rowsharded_scan_qf(mesh, tab, mu, H, EARLY_STEPS, precise_sums=True)
+            out_qf = run_qf(qf0)
+            refresh, force = sh.make_rowsharded_split_force(mesh, mu, k=STRONG_K)
+            idx_s, mask_s = refresh(p64)
+            a_s = force(p64, idx_s, mask_s)
+            run_e, _ = sh.make_shardmap_ensemble_scan_f(mesh, tab, mu, H, EARLY_STEPS)
+            out_e = run_e(ens["f0"])
+            torch.cuda.synchronize()
+            t_path = time.perf_counter() - t0
+            launches_e = read_counts()
+            for k in ("accel_df64_rows", "accel_limbs3_rows", "elm2f_update", "elm2q_update",
+                      "accel_f32_masked", "strong_corr", "accel_df64_ensemble"):
+                check(launches_e[k] > 0, f"path E did not launch {k}: {launches_e}")
+            check(launches_e["accel_df64"] == 0 and launches_e["accel_limbs3"] == 0,
+                  f"path E launched a square pair kernel: {launches_e}")
+
+            # the unsharded references
+            ref_f = f0
+            for _ in range(EARLY_STEPS):
+                ref_f = ms.elm2_step_f(tab, accel_pair_square, H, ref_f)
+            ref_qf = qf0
+            for _ in range(EARLY_STEPS):
+                ref_qf = ms.elm2_step_qf(tab, cl_pair, H, ref_qf, precise_sums=True)
+            idx = split.strong_pair_indices(p64, m64, k=STRONG_K)
+            mask = split.strong_pair_mask(idx, N_BODIES)
+            a_ref = cuda_split.pairwise_accel_split(p64, m64, idx, mask)
+
+            def same(a, b):
+                return all(torch.equal(x, y) for x, y in zip(a, b))
+
+            results = {
+                "scan_f": same((*out_f.ys, *out_f.dd), (*ref_f.ys, *ref_f.dd)),
+                "scan_qf_precise": same((*out_qf.ys, *out_qf.dd), (*ref_qf.ys, *ref_qf.dd)),
+                "split_refresh": bool(torch.equal(idx_s, idx) and torch.equal(mask_s, mask)),
+                "split_force": bool(torch.equal(a_s, a_ref)),
+                "shardmap_ensemble": same((*out_e.ys, *out_e.dd), (*ens["f25"].ys, *ens["f25"].dd)),
+            }
+            for what, ok in results.items():
+                check(ok, f"path E {what} is not the unsharded result bitwise")
+        finally:
+            dist.destroy_process_group()
+        for k in ("accel_df64_rows", "accel_limbs3_rows"):
+            record.setdefault(k, {})["launches"] = launches_e[k]
+        print(json.dumps({"phase": 21, "path": "E", "ranks": 1, "backend": "nccl", "n": N_BODIES,
+                          "steps": EARLY_STEPS, "bitwise": results, "launches": launches_e,
+                          "path_s": t_path, "phase_s": time.perf_counter() - t_phase,
+                          "card": smi}))
+
     if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
+    pallas = "ephemeris_explorer_tpu/ops/pallas_nbody.py"
+    csrc = "ephemeris_explorer_tpu_torch/csrc"
     kernels = [
-        {"name": "accel_df64", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/accel_df64.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:99", **record["accel_df64"]},
-        {"name": "elm2f_update", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/elm2f_update.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_elm2.py:310", **record["elm2f_update"]},
-        {"name": "accel_limbs3", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/accel_limbs3.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:383", **record["accel_limbs3"]},
-        {"name": "elm2q_update", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/elm2q_update.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_elm2.py:97", **record["elm2q_update"]},
-        {"name": "accel_f32", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/accel_f32.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:869", **record["accel_f32"]},
-        {"name": "accel_mixed", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/accel_mixed.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:776", **record["accel_mixed"]},
-        {"name": "accel_f32_masked", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/accel_f32.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:971",
-         **record["accel_f32_masked"]},
-        {"name": "strong_corr", "route": "cuda",
-         "source": "ephemeris_explorer_tpu_torch/csrc/strong_corr.cu",
-         "replaces": "ephemeris_explorer_tpu/ops/pallas_nbody.py:1258", **record["strong_corr"]},
+        {"name": name, "route": "cuda", "source": f"{csrc}/{source}", "replaces": replaces,
+         **{k: record[name][k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+        for name, source, replaces in (
+            ("accel_df64", "accel_df64.cu", f"{pallas}:99"),
+            ("accel_df64_ensemble", "accel_df64.cu", f"{pallas}:99"),
+            ("accel_df64_rows", "accel_df64.cu", f"{pallas}:99"),
+            ("elm2f_update", "elm2f_update.cu", "ephemeris_explorer_tpu/ops/pallas_elm2.py:310"),
+            ("accel_limbs3", "accel_limbs3.cu", f"{pallas}:383"),
+            ("accel_limbs3_rows", "accel_limbs3.cu", f"{pallas}:383"),
+            ("elm2q_update", "elm2q_update.cu", "ephemeris_explorer_tpu/ops/pallas_elm2.py:97"),
+            ("accel_f32", "accel_f32.cu", f"{pallas}:869"),
+            ("accel_mixed", "accel_mixed.cu", f"{pallas}:776"),
+            ("accel_f32_masked", "accel_f32.cu", f"{pallas}:971"),
+            ("strong_corr", "strong_corr.cu", f"{pallas}:1258"),
+            ("strong_corr_dd", "strong_corr.cu", f"{pallas}:1171"),
+        )
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

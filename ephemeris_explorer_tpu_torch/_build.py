@@ -110,12 +110,18 @@ def _compile(lib_path: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_accel_df64.argtypes = [_vp] * 8 + [_int, _int, _vp]
     lib.eet_accel_df64.restype = _int
+    lib.eet_accel_df64_ensemble.argtypes = [_vp] * 8 + [_int] * 3 + [_vp]
+    lib.eet_accel_df64_ensemble.restype = _int
+    lib.eet_accel_df64_rows.argtypes = [_vp] * 10 + [_int] * 4 + [_vp]
+    lib.eet_accel_df64_rows.restype = _int
     lib.eet_accel_df64_tile.argtypes = []
     lib.eet_accel_df64_tile.restype = _int
     lib.eet_elm2f_update.argtypes = [_vp, _vp, _int] + [_vp] * 6 + [_int, _vp]
     lib.eet_elm2f_update.restype = _int
     lib.eet_accel_limbs3.argtypes = [_vp] * 9 + [_int, _int, _vp]
     lib.eet_accel_limbs3.restype = _int
+    lib.eet_accel_limbs3_rows.argtypes = [_vp] * 12 + [_int] * 4 + [_vp]
+    lib.eet_accel_limbs3_rows.restype = _int
     lib.eet_accel_limbs3_tile.argtypes = []
     lib.eet_accel_limbs3_tile.restype = _int
     lib.eet_elm2q_update.argtypes = [_vp, _int, _vp, _int, ctypes.c_uint] + [_vp] * 10 + [_int, _vp]
@@ -132,6 +138,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_accel_mixed_tile.restype = _int
     lib.eet_strong_corr.argtypes = [_vp] * 9 + [_int, _int, _int, _vp]
     lib.eet_strong_corr.restype = _int
+    lib.eet_strong_corr_dd.argtypes = [_vp] * 5 + [_int, _int, _vp]
+    lib.eet_strong_corr_dd.restype = _int
     return lib
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import _device
 from .ftime import Duration, Epoch
 from .integrators import get as get_method
 from .integrators.multistep import (
@@ -285,9 +286,10 @@ class Ephemeris:
     def nbytes(self) -> int:
         return sum(b.nbytes for b in self.bodies.values())
 
-    def pack(self, device="cpu") -> "PackedEphemeris":
-        """The flattened view on ``device`` (one snapshot per body)."""
-        device = torch.device(device)
+    def pack(self, device=None) -> "PackedEphemeris":
+        """The flattened view on ``device`` (one snapshot per body; None =
+        the card, :func:`._device.resolve`)."""
+        device = _device.resolve(device)
         snaps = [self.bodies[n].snapshot() for n in self.names]
         starts = np.array([s for s, _ in snaps])
         intervals = np.array([self.bodies[n].interval_s for n in self.names])
@@ -566,7 +568,7 @@ class NBodyPropagator:
         precision: str = "auto",
         perturbations: tuple = (),
         precise_sums: bool | None = None,
-        device="cpu",
+        device=None,
     ):
         """precision: "f64" (native IEEE f64 on CPU and on CUDA), "extended"
         (4-limb f32 expansion position state, force in f64), "extended3"
@@ -576,6 +578,9 @@ class NBodyPropagator:
         precise_sums: pair-precision beta sums in the multistep update
         (multistep._wsum_precise).  None = on for the extended precisions,
         off for "f64" (where, as in the JAX package, it changes nothing).
+
+        device: where the chunks run; None = the card (raises without CUDA,
+        :func:`._device.resolve`), ``"cpu"`` for the CPU.
 
         "extendedF" and perturbations wait for ROADMAP.md queue 1, item 8."""
         names = [b.name for b in state.bodies]
@@ -599,7 +604,7 @@ class NBodyPropagator:
         if precise_sums is None:
             precise_sums = precision in EXTENDED
         self.precision = precision
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.spec = GenSpec(
             method=method,
             h=float(np.copysign(settings.dt.as_seconds(), direction)),
@@ -691,11 +696,12 @@ def generate_ephemeris(
     precision: str = "auto",
     perturbations: tuple = (),
     precise_sums: bool | None = None,
-    device="cpu",
+    device=None,
 ) -> Ephemeris:
     """Generate a full system ephemeris over `span` (one direction) on
-    ``device`` (load/mod.rs:673-687): fixed-step integration with per-body
-    sampling/fitting, assembled into UniformSpline-equivalent containers."""
+    ``device`` (None = the card; ``"cpu"`` for the CPU) (load/mod.rs:673-687):
+    fixed-step integration with per-body sampling/fitting, assembled into
+    UniformSpline-equivalent containers."""
     prop = NBodyPropagator(
         state, settings, direction=direction, method=method,
         precision=precision, perturbations=perturbations,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's step and force loops, on one NVIDIA GPU.
 
-    python3 profile_port.py [--loops A,B,C] [--out FILE]
+    python3 profile_port.py [--loops A,B,C,D] [--out FILE]
 
 Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 
@@ -13,9 +13,12 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   on full_solar_system, after a first chunk that runs the startup;
 * path C: 400 force evaluations of each rung of the force-mode ladder at
   N = 4096 (f32: kernel 5; mixed: kernel 6; split, K = 16: kernels 7 and 8,
-  the strong set built once), as ``chip_smoke.py`` phase 16 runs them.
+  the strong set built once), as ``chip_smoke.py`` phase 16 runs them;
+* path D: one 50-step scan of ``make_fused_ensemble_scan_f`` at E = 16 x
+  N = 4096 (kernel 1's ensemble form then kernel 2 each step), as
+  ``chip_smoke.py`` phase 20 runs it (``bench.py``'s ensemble16x4096).
 
-``--loops`` picks the paths (default all three).  For each: wall µs per step (synchronised host timer around the profiled
+``--loops`` picks the paths (default all four).  For each: wall µs per step (synchronised host timer around the profiled
 loop), device µs per step (the sum of the CUDA kernels' self time), the
 idle share 1 - device / wall, and the kernels by device time with their
 launches per step.  Each loop is also timed without the profiler.  Prints
@@ -31,6 +34,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 TOP = 12
@@ -78,7 +83,7 @@ def profile_loop(torch, name: str, body, steps: int, sync) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--loops", default="A,B,C")
+    ap.add_argument("--loops", default="A,B,C,D")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
     paths = set(args.loops.split(","))
@@ -89,12 +94,13 @@ def main(argv=None) -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import H, N_BODIES, _cluster, ladder_loops
+    from chip_smoke import ENS_SCAN_STEPS, ENSEMBLE, H, N_BODIES, _cluster, ladder_loops
     from ephemeris_explorer_tpu_torch import ephemeris as eph
     from ephemeris_explorer_tpu_torch.integrators import get
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.io import scene
     from ephemeris_explorer_tpu_torch.ops import cuda_limbs, cuda_nbody
+    from ephemeris_explorer_tpu_torch.parallel import sharding as sh
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -152,6 +158,14 @@ def main(argv=None) -> int:
         for mode, (loop, start, _) in ladder_loops(p64, mu_dev).items():
             results.append(profile_loop(torch, f"path_C_{mode}_eval",
                                         lambda: loop(start, 400), 400, sync))
+    if "D" in paths:
+        ens_pos = np.stack([_cluster(N_BODIES, seed=i)[0] for i in range(ENSEMBLE)])
+        ens_vel = np.stack([_cluster(N_BODIES, seed=i)[1] for i in range(ENSEMBLE)])
+        carry0 = sh.init_fused_ensemble_carry(tab, mu, 0.0, ens_pos, ens_vel, H, device=dev)
+        run, to_f = sh.make_fused_ensemble_scan_f(tab, mu, H, ENS_SCAN_STEPS, device=dev)
+        f0 = to_f(carry0)
+        results.append(profile_loop(torch, "path_D_ensemble16x4096_step", lambda: run(f0),
+                                    ENS_SCAN_STEPS, sync))
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))
     out = Path(args.out)

@@ -1,4 +1,4 @@
-"""Kernels 1-8 against their plain PyTorch versions on an NVIDIA GPU.
+"""Kernels 1-9 against their plain PyTorch versions on an NVIDIA GPU.
 
 Every test here needs the card: it is marked ``cuda`` and skips (inside a
 fixture) when ``torch.cuda.is_available()`` is false.  The file imports no
@@ -185,7 +185,8 @@ def test_extended3_generation_on_card(cuda_device):
                                  device=cuda_device)
     assert cuda_limbs.pairwise_accel_limbs_pair.launches - k3 > 288 - 12
     assert cuda_elm2q.elm2q_update.launches == k4
-    cpu = eph.generate_ephemeris(sc.state, sc.settings, span, precision="extended3")
+    cpu = eph.generate_ephemeris(sc.state, sc.settings, span, precision="extended3",
+                                 device="cpu")
     for n in cpu.names:
         a, b = cpu[n].coeffs, gpu[n].coeffs
         assert a.shape == b.shape
@@ -404,3 +405,121 @@ def test_forcemode_wrappers_check_inputs(cuda_device):
     with pytest.raises(ValueError):
         cuda_split.strong_correction_pair(p32, p32, p32[:8], p32, mh, mh, idx)
     assert [f.launches for f in counters] == before
+
+
+# -- kernel 1's ensemble and rows forms, kernel 3's rows form, kernel 9 --------
+
+
+@pytest.mark.parametrize("e, n", [(2, 32), (3, 1000), (16, 4096)])
+def test_kernel1_ensemble_on_card(cuda_device, e, n):
+    """Kernel 1's ensemble form: each member equals the square kernel on
+    that member bitwise (one launch for all members), and is within 1e-13
+    of max |a| of the plain version."""
+    rng = np.random.default_rng(21)
+    pos = torch.tensor(rng.normal(size=(e, n, 3)) * 1e6, device=cuda_device)
+    mu = torch.tensor(rng.uniform(1e3, 1e5, size=n), device=cuda_device)
+    ph, pl = cuda_nbody.split_f64(pos.transpose(1, 2))
+    mh, ml = cuda_nbody.split_f64(mu.reshape(1, -1))
+    before = cuda_nbody.pairwise_accel_df64_ensemble.launches
+    kh, kl = cuda_nbody.pairwise_accel_df64_ensemble(ph, pl, mh, ml)
+    assert cuda_nbody.pairwise_accel_df64_ensemble.launches == before + 1
+    for m in range(e):
+        sh_, sl = cuda_nbody.pairwise_accel_df64(ph[m].contiguous(), pl[m].contiguous(), mh, ml)
+        assert torch.equal(kh[m], sh_) and torch.equal(kl[m], sl)
+    for m in (0, e - 1):
+        r = cuda_nbody.combine_f64(*cuda_nbody.pairwise_accel_df64_plain(ph[m], pl[m], mh, ml))
+        k = cuda_nbody.combine_f64(kh[m], kl[m])
+        assert (k - r).abs().max() <= 1e-13 * r.abs().max()
+
+
+@pytest.mark.parametrize("n", [32, 1000, 4096])
+def test_kernel1_and_kernel3_rows_on_card(cuda_device, n):
+    """The rows forms of kernels 1 and 3 at row0 = 0, N/4 and a ragged
+    offset equal the square forms' row slices bitwise."""
+    pos, mu = _cloud(n, 22)
+    tp = torch.tensor(pos, device=cuda_device)
+    mh, ml = cuda_nbody.split_f64(torch.tensor(mu, device=cuda_device).reshape(1, -1))
+    ph, pl = cuda_nbody.split_f64(tp, transpose=True)
+    sq1 = cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml)
+    limbs = ex.from_f64_host(pos, cuda_device)[:3]
+    sq3 = cuda_limbs.pairwise_accel_limbs_pair(*limbs, mh, ml)
+    src3 = [l.t().contiguous() for l in limbs]
+    for r0, nl in ((0, n // 2), (n // 4, n // 4), (n // 3 + 1, n - n // 3 - 1)):
+        rh, rl = cuda_nbody.split_f64(tp[r0:r0 + nl])
+        b1 = cuda_nbody.pairwise_accel_df64_rows.launches
+        got1 = cuda_nbody.pairwise_accel_df64_rows(ph, pl, mh, ml, rh, rl, r0)
+        assert cuda_nbody.pairwise_accel_df64_rows.launches == b1 + 1
+        b3 = cuda_limbs.pairwise_accel_limbs_pair_rows.launches
+        got3 = cuda_limbs.pairwise_accel_limbs_pair_rows(
+            *src3, mh, ml, *(l[r0:r0 + nl].contiguous() for l in limbs), r0)
+        assert cuda_limbs.pairwise_accel_limbs_pair_rows.launches == b3 + 1
+        for g, s in list(zip(got1, sq1)) + list(zip(got3, sq3)):
+            assert torch.equal(g, s[r0:r0 + nl])
+
+
+@pytest.mark.parametrize("n, k", [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40)])
+def test_kernel9_matches_plain_on_card(cuda_device, n, k):
+    """Kernel 9 against its plain version: bitwise, as kernel 8 (same feed
+    arithmetic, same chain and tree); within 3e-13 per body of the f64
+    correction on the hierarchy."""
+    pos, mu = _hierarchy() if n == 16 else _cloud(n, 14)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=k)
+    before = cuda_split.strong_correction_dd.launches
+    kh, kl = cuda_split.strong_correction_dd(tp, tm, idx)
+    assert cuda_split.strong_correction_dd.launches == before + 1
+    rh, rl = cuda_split.strong_correction_dd_plain(tp, tm, idx)
+    kc, rc = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
+    assert (kc - rc).abs().max() <= STRONG_VS_PLAIN * rc.abs().max()
+    if n == 16:
+        assert _rel_rows(kc, split._strong_correction(tp, tm, idx)) < 3e-13
+
+
+def test_kernel9_out_of_range_index_gives_nan(cuda_device):
+    """Kernel 8's rule: an index outside [0, N) gives NaN for its receiver
+    and leaves every other receiver bitwise."""
+    pos, mu = _cloud(64, 15)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=8)
+    good = cuda_split.strong_correction_dd(tp, tm, idx)
+    bad_idx = idx.clone()
+    bad_idx[3, 5] = 64
+    bad_idx[40, 0] = -1
+    bad = cuda_split.strong_correction_dd(tp, tm, bad_idx)
+    keep = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    keep[[3, 40]] = False
+    for g, b in zip(good, bad):
+        assert b[[3, 40]].isnan().all() and torch.equal(b[keep], g[keep])
+
+
+def test_one_rank_nccl_mesh_on_card(cuda_device, tmp_path):
+    """A one-rank NCCL group: make_mesh() defaults to the card, and the
+    row-sharded fused scan equals the unsharded one bitwise."""
+    import torch.distributed as dist
+
+    from ephemeris_explorer_tpu_torch.integrators import multistep as ms
+    from ephemeris_explorer_tpu_torch.ops import nbody
+    from ephemeris_explorer_tpu_torch.parallel import sharding as sh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = sh.make_mesh(1, 1)
+        assert mesh.device_type == "cuda"
+        pos, mu = _cloud(256, 23)
+        tm = torch.tensor(mu, device=cuda_device)
+        tab = get(QT12)
+        c0 = ms.elm2_f_from(ms.elm2_init(tab, lambda t, y: nbody.pairwise_accel(y, tm), 0.0,
+                                         torch.tensor(pos, device=cuda_device),
+                                         torch.zeros((256, 3), dtype=torch.float64,
+                                                     device=cuda_device), 600.0))
+        run, _ = sh.make_rowsharded_scan_f(mesh, tab, mu, 600.0, 5)
+        out = run(c0)
+        mh, ml = cuda_nbody.split_f64(tm.reshape(1, -1))
+        ref = c0
+        for _ in range(5):
+            ref = ms.elm2_step_f(tab, lambda t, y: TwoFloat(*cuda_nbody.pairwise_accel_df64(
+                y.hi.t().contiguous(), y.lo.t().contiguous(), mh, ml)), 600.0, ref)
+        assert torch.equal(out.ys.hi, ref.ys.hi) and torch.equal(out.ys.lo, ref.ys.lo)
+    finally:
+        dist.destroy_process_group()

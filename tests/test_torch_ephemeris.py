@@ -69,7 +69,7 @@ def test_generation_matches_jax(scene_name, days, request):
     """Coefficients <= 1e-12 of max|position| in sample space."""
     j, state, settings = request.getfixturevalue(scene_name)
     ej = jgenerate(j.state, j.settings, JDuration.from_days(days), precision="f64")
-    et = eph.generate_ephemeris(state, settings, Duration.from_days(days))
+    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), device="cpu")
     _same_layout(et, ej)
     assert _sample_space_err(et, ej, settings) <= 1e-12
 
@@ -81,8 +81,9 @@ def test_backward_generation_and_merge_match_jax(sem):
                 jgenerate(j.state, j.settings, JDuration.from_days(span), direction=-1,
                           precision="f64"))
     et = eph.merge_bidirectional(
-        eph.generate_ephemeris(state, settings, Duration.from_days(span)),
-        eph.generate_ephemeris(state, settings, Duration.from_days(span), direction=-1),
+        eph.generate_ephemeris(state, settings, Duration.from_days(span), device="cpu"),
+        eph.generate_ephemeris(state, settings, Duration.from_days(span), direction=-1,
+                               device="cpu"),
     )
     _same_layout(et, ej)
     assert _sample_space_err(et, ej, settings) <= 1e-12
@@ -92,9 +93,9 @@ def test_chunked_equals_unchunked(sem):
     """Chunk boundaries change nothing: identical coefficients."""
     _, state, settings = sem
     span = Duration.from_days(40.0)
-    whole = eph.generate_ephemeris(state, settings, span)
+    whole = eph.generate_ephemeris(state, settings, span, device="cpu")
     for chunk in (13, 37, 64):
-        parts = eph.generate_ephemeris(state, settings, span, chunk_steps=chunk)
+        parts = eph.generate_ephemeris(state, settings, span, chunk_steps=chunk, device="cpu")
         _same_layout(parts, whole)
         for n in whole.names:
             np.testing.assert_array_equal(parts[n].coeffs, whole[n].coeffs)
@@ -112,7 +113,7 @@ def test_evaluation_matches_jax(sem):
     )
     t0 = ej.start.as_offset_seconds()
     span = ej.end.as_offset_seconds() - t0
-    packed_j, packed_t = ej.pack(), et.pack()
+    packed_j, packed_t = ej.pack(), et.pack(device="cpu")
     for frac in (0.0, 0.137, 0.5, 0.999, 1.0):
         t = t0 + frac * span
         pj, pt = ej.positions(t), et.positions(t)
@@ -148,7 +149,8 @@ def test_fused_branch_matches_jax_f64(sem, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(eph, "elm2_step_f", counting_step)
-    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), chunk_steps=64)
+    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), chunk_steps=64,
+                                device="cpu")
     assert steps["update"] == 160 - 12  # every step after the startup went through it
     _same_layout(et, ej)
     assert _sample_space_err(et, ej, settings) <= 1e-11
@@ -169,7 +171,8 @@ def test_unported_precisions_raise(sem, precision, perturbations):
     """The tf96 force and perturbations are not ported yet."""
     _, state, settings = sem
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eph.NBodyPropagator(state, settings, precision=precision, perturbations=perturbations)
+        eph.NBodyPropagator(state, settings, precision=precision, perturbations=perturbations,
+                            device="cpu")
 
 
 def test_extended_generation_matches_jax(sem):
@@ -182,7 +185,8 @@ def test_extended_generation_matches_jax(sem):
     j, state, settings = sem
     days = 40.0
     ej = jgenerate(j.state, j.settings, JDuration.from_days(days), precision="extended")
-    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), precision="extended")
+    et = eph.generate_ephemeris(state, settings, Duration.from_days(days), precision="extended",
+                                device="cpu")
     _same_layout(et, ej)
     assert _sample_space_err(et, ej, settings) <= 1e-14
 
@@ -190,7 +194,8 @@ def test_extended_generation_matches_jax(sem):
 @pytest.fixture(scope="module")
 def sem_extended3(sem):
     _, state, settings = sem
-    return eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="extended3")
+    return eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="extended3",
+                                  device="cpu")
 
 
 def test_extended3_generation_matches_f64(sem, sem_extended3):
@@ -198,7 +203,8 @@ def test_extended3_generation_matches_f64(sem, sem_extended3):
     every force) against "f64": below 1e-3 km at mid-span
     (test_extended_precision_generation's bar; measured 3.2e-5 km)."""
     _, state, settings = sem
-    e64 = eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="f64")
+    e64 = eph.generate_ephemeris(state, settings, Duration.from_days(40.0), precision="f64",
+                                 device="cpu")
     _same_layout(sem_extended3, e64)
     t = state.epoch.as_offset_seconds() + 20 * 86400.0
     assert np.abs(sem_extended3.positions(t) - e64.positions(t)).max() < 1e-3
@@ -223,7 +229,8 @@ def test_extended3_routes_every_force_through_kernel3(sem, monkeypatch):
                         counting("k3", cuda_limbs.pairwise_accel_limbs_pair))
     monkeypatch.setattr(eph.nbody, "pairwise_accel", counting("f64", eph.nbody.pairwise_accel))
     monkeypatch.setattr(cuda_elm2q, "elm2q_update", counting("k4", cuda_elm2q.elm2q_update))
-    eph.generate_ephemeris(state, settings, Duration.from_days(10.0), precision="extended3")
+    eph.generate_ephemeris(state, settings, Duration.from_days(10.0), precision="extended3",
+                           device="cpu")
     # 40 steps: the startup's ORDER full steps of FSAL starter sub-steps (one
     # evaluation at the start, then one per stage after the first), then one
     # per scan step
@@ -240,7 +247,7 @@ def test_extended3_chunked_equals_unchunked(sem, sem_extended3):
     _, state, settings = sem
     for chunk in (13, 37, 64):
         parts = eph.generate_ephemeris(state, settings, Duration.from_days(40.0),
-                                       precision="extended3", chunk_steps=chunk)
+                                       precision="extended3", chunk_steps=chunk, device="cpu")
         _same_layout(parts, sem_extended3)
         for n in sem_extended3.names:
             np.testing.assert_array_equal(parts[n].coeffs, sem_extended3[n].coeffs)
@@ -256,7 +263,8 @@ def test_precise_sums_resolution(sem, precision, precise_sums, expect):
     from ephemeris_explorer_tpu.ephemeris import NBodyPropagator as JProp
 
     j, state, settings = sem
-    prop = eph.NBodyPropagator(state, settings, precision=precision, precise_sums=precise_sums)
+    prop = eph.NBodyPropagator(state, settings, precision=precision, precise_sums=precise_sums,
+                               device="cpu")
     assert prop.spec.precise_sums is expect
     assert prop.precision == ("f64" if precision == "auto" else precision)
     jprop = JProp(j.state, j.settings, precision=precision, precise_sums=precise_sums)

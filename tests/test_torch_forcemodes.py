@@ -1,8 +1,9 @@
-"""The force-mode ladder (kernels 5-8) against the JAX package's.
+"""The force-mode ladder (kernels 5-9) against the JAX package's.
 
 Kernel 5 (f32), kernel 6 (mixed), kernel 7 (masked f32, the split mode's
-weak tail) and kernel 8 (the two-float strong-pair correction) run as their
-plain versions here (CPU tensors); the JAX side runs its Pallas kernels in
+weak tail), kernel 8 (the two-float strong-pair correction) and kernel 9
+(the same correction on the f64-differenced feed, ``corr="dd"``) run as
+their plain versions here (CPU tensors); the JAX side runs its Pallas kernels in
 interpret mode with 8 x 8 tiles, as ``tests/test_pallas_nbody.py`` does.
 Inputs come from numpy with a seed, and one strong set (``interop.
 strong_set_from``) feeds both packages.  The reference's own bars for the
@@ -14,7 +15,8 @@ kernels (and torch's f32 rsqrt seed differs from XLA:CPU's by an ulp in a
 third of the inputs), so they are held to 1e-6 of max |a|.  Kernel 8's
 chain and tree are the reference's, but the same seed difference moves a
 pair's two-float weight by ~2^-48, so it is held to 1e-14 of max |c|; the
-tree itself is checked bitwise.
+tree itself is checked bitwise.  Kernel 9 is held the same way: 1e-14 of
+max |c| against the Pallas kernel, its feed and padding bitwise.
 """
 
 import subprocess
@@ -379,18 +381,115 @@ def test_split_mode_matches_jax(case, k, corr):
 
 
 def test_split_corr_dd_raises_and_exact_f64_spelling():
-    """corr="dd" (kernel 9) is not ported and raises rather than run another
-    correction; exact_f64=True is corr="f64"; an unknown corr raises."""
+    """exact_f64=True is corr="f64"; an unknown corr raises."""
     pos, mu = _cloud(16, 2)
     tp, tm = torch.tensor(pos), torch.tensor(mu)
     idx = split.strong_pair_indices(tp, tm, k=4)
     mask = split.strong_pair_mask(idx, 16)
-    with pytest.raises(NotImplementedError, match="queue 2 #9"):
-        cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="dd")
     a = cuda_split.pairwise_accel_split(tp, tm, idx, mask, exact_f64=True)
     assert torch.equal(a, cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="f64"))
     with pytest.raises(ValueError):
         cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="exact")
+
+
+# -- kernel 9 -----------------------------------------------------------------
+
+@pytest.mark.parametrize("case, k", [("hierarchy", 6), ("cloud64", 8), ("cloud64", 5),
+                                     ("cloud64", 16)])
+def test_kernel9_plain_matches_pallas(case, k):
+    """Kernel 9's plain version against the JAX package's
+    ``_strong_correction_df64`` (interpret mode): <= 1e-14 of max |c|; K = 6
+    and 5 pad to KP = 8 in front."""
+    pos, mu = INPUTS[case]()
+    (jidx, _), (idx, _) = _strong_set(pos, mu, k)
+    before = cuda_split.strong_correction_dd.launches
+    port = cuda_split._strong_correction_df64(torch.tensor(pos), torch.tensor(mu), idx).numpy()
+    assert cuda_split.strong_correction_dd.launches == before  # CPU: plain version
+    ref = jp._strong_correction_df64(jnp.asarray(pos), jnp.asarray(mu), jidx, interpret=True)
+    assert port.dtype == np.float64
+    assert _rel(port, ref) <= STRONG_VS_PALLAS
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_kernel9_feed_is_the_reference_split(k):
+    """The feed, bitwise: the f64 difference pos[idx] - pos[i] split into
+    (hi, lo) f32 as ``_split_f64`` does, the KP - K padding zeros in front,
+    and the split mu[idx], as the reference builds them on the host."""
+    pos, mu = _hierarchy()
+    (jidx, _), (idx, _) = _strong_set(pos, mu, k)
+    kp = cuda_split._padded_width(k)
+    d64 = torch.tensor(pos)[idx.long()] - torch.tensor(pos)[:, None, :]
+    jd64 = jnp.asarray(pos)[jidx] - jnp.asarray(pos)[:, None, :]
+    for c in range(3):
+        got = cuda_split._split_pad(d64[..., c], kp)
+        ref = jp._split_f64(jd64[..., c])
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[:, kp - k:].numpy(), np.asarray(r))
+            assert not g[:, :kp - k].any()
+    got = cuda_split._split_pad(torch.tensor(mu)[idx.long()], kp)
+    for g, r in zip(got, jp._split_f64(jnp.asarray(mu)[jidx])):
+        np.testing.assert_array_equal(g[:, kp - k:].numpy(), np.asarray(r))
+
+
+def test_kernel9_padding_adds_exact_zero():
+    """A padding entry (d = 0, mu = 0) contributes a two-float zero: K = 3
+    (KP = 4) equals the three real terms' tree with an exact zero in front,
+    which is what the kernel adds in its place."""
+    pos, mu = _cloud(16, 12)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=3)
+    got = cuda_split.strong_correction_dd_plain(tp, tm, idx)
+    terms = [cuda_split.strong_correction_dd_plain(tp, tm, idx[:, j:j + 1].contiguous())
+             for j in range(3)]
+    zero = torch.zeros_like(terms[0][0])
+    want = eft.add_sloppy(eft.add_sloppy(TwoFloat(zero, zero), TwoFloat(*terms[1])),
+                          eft.add_sloppy(TwoFloat(*terms[0]), TwoFloat(*terms[2])))
+    assert torch.equal(got[0], want.hi) and torch.equal(got[1], want.lo)
+
+
+@pytest.mark.parametrize("case, k", [("hierarchy", 6), ("cloud64", 8)])
+def test_strong_correction_df64_matches_f64(case, k):
+    """test_strong_correction_df64_matches_f64's bar on the port: within
+    3e-13 per body of the native-f64 correction, and on the hierarchy
+    closer than the split-limb feed (kernel 8, ~1.7e-12 there)."""
+    pos, mu = INPUTS[case]()
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=k)
+    ref = split._strong_correction(tp, tm, idx)
+    dd = _rel_rows(cuda_split._strong_correction_df64(tp, tm, idx), ref).max()
+    assert dd < 3e-13
+    if case == "hierarchy":
+        assert dd < _rel_rows(cuda_split._strong_correction_fast(tp, tm, idx), ref).max()
+
+
+@pytest.mark.parametrize("case, k", [("hierarchy", 6), ("cloud64", 8)])
+def test_split_mode_dd_matches_jax(case, k):
+    """``pairwise_accel_split(corr="dd")`` against the JAX package's, from
+    one strong set: 1e-6 of max |a| (the f32 tails' sum order), and within
+    the split mode's envelopes against native f64 (2e-9 per body on the
+    hierarchy, 4e-7 on the cloud)."""
+    pos, mu = INPUTS[case]()
+    (jidx, jmask), (idx, mask) = _strong_set(pos, mu, k)
+    port = cuda_split.pairwise_accel_split(torch.tensor(pos), torch.tensor(mu), idx, mask,
+                                           corr="dd")
+    ref = jp.pairwise_accel_split(jnp.asarray(pos), jnp.asarray(mu), jidx, jmask, corr="dd",
+                                  **TILES)
+    assert _rel(port, ref) <= F32_VS_PALLAS
+    envelope = {"hierarchy": 2e-9, "cloud64": 4e-7}[case]
+    assert _rel_rows(port, _dense_f64(pos, mu)).max() < envelope
+
+
+def test_kernel9_plain_rejects_out_of_range_index():
+    """The plain version raises on an index outside [0, N) (the kernel gives
+    NaN for that receiver, test_torch_cuda.py)."""
+    pos, mu = _cloud(16, 13)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=4)
+    for bad in (16, -1):
+        wrong = idx.clone()
+        wrong[2, 1] = bad
+        with pytest.raises(IndexError):
+            cuda_split.strong_correction_dd(tp, tm, wrong)
 
 
 # -- the strong set -----------------------------------------------------------
@@ -499,11 +598,12 @@ def _meta_calls():
         "f32_masked_rows": lambda: cuda_f32.pairwise_accel_f32_masked_rows(p32, m32, mask, p32),
         "mixed": lambda: cuda_mixed.pairwise_accel_mixed(ph, ph, m32),
         "strong_corr": lambda: cuda_split.strong_correction_pair(p32, p32, p32, p32, mh, mh, idx),
+        "strong_corr_dd": lambda: cuda_split.strong_correction_dd(p32.double(), mh.double(), idx),
     }
 
 
 @pytest.mark.parametrize("name", ["f32", "f32_masked", "f32_masked_rows", "mixed",
-                                  "strong_corr"])
+                                  "strong_corr", "strong_corr_dd"])
 def test_wrappers_reject_unsupported_device(name):
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[name]()
