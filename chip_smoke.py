@@ -26,7 +26,17 @@ them:
   square forms (phases 17-19), ``ensemble16x4096`` as ``bench.py:379-435``
   drives it through kernel 1's ensemble form and kernel 2 (path D, phase
   20), and the row-sharded scans and the data-parallel ensemble at one NCCL
-  rank, bitwise against the unsharded ones (path E, phase 21).
+  rank, bitwise against the unsharded ones (path E, phase 21);
+* the last four TPU kernel forms: the packed entry points of kernels 2 and 4
+  (2', 4'), the symmetric pair force (kernel 10) and the whole-chunk
+  generation kernel (kernel 11) against their plain versions (phases
+  22-24); one year of full_solar_system through kernel 11, against native
+  f64 and the fused two-float step, and its generation through the private
+  gate (path F, phase 25); kernel 10 at N = 4096 in a 400-evaluation loop
+  and a 25-step scan (path G, phase 26); ``ensemble16x4096`` on the packed
+  carry as ``bench.py:398-402`` drives it (path H, phase 27); and the
+  packed parity step ``elm2_step_qfp(precise_sums=True)`` (path I, phase
+  28).
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; the line before the last is the
@@ -58,7 +68,7 @@ FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
 EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
-ALL_PHASES = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21"
+ALL_PHASES = ",".join(str(p) for p in range(1, 29))
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -130,6 +140,26 @@ ENSEMBLE = 16
 ENS_SCAN_STEPS = 50
 ENS_TIMED_SCANS = 2
 DD_VS_F64 = 3e-13
+# Slice 5.  Kernel 10 against kernel 1: 2^-44 of max|a|, the bar of
+# test_symmetric_kernel_matches_row_sweep; against its plain version bitwise
+# (same ops in the same order), checked at the same bar.  Kernel 11 against
+# its plain version over GEN_CHECK_STEPS on three scenes: 2^-44 of max|y|
+# (expect bitwise).  Path F holds kernel 11's year of full_solar_system to
+# the envelope of test_gen_scan_kernel_matches_plain with native f64 in
+# place of the dd truth: after the first chunk, err <= max(GEN_ENVELOPE x
+# the fused two-float route's err (kernels 1 + 2), 2^-42 max|y|); its force
+# ring head to native f64 at kernel 1's full_solar_system bar (two-float
+# positions of the Phobos-Mars pair), and its generated coefficients to
+# native f64 in sample space within max(GEN_ENVELOPE x the fused route's,
+# FSS_BOUND).
+SYM_VS_KERNEL1 = 2.0**-44
+GEN_CHECK_STEPS = 64
+GEN_VS_PLAIN = 2.0**-44
+GEN_ENVELOPE = 5.0
+GEN_FLOOR = 2.0**-42
+GEN_YEAR_STEPS = 52560      # one year at dt = 10 min
+GEN_SCENES = ("full_solar_system_2433282.5", "simple_solar_system_2433282.5",
+              "sun_earth_moon_2433282.5")
 
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3
@@ -285,7 +315,8 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.io import scene
     from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_limbs, cuda_nbody, nbody
-    from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_mixed, cuda_split, split
+    from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_gen, cuda_mixed, cuda_split
+    from ephemeris_explorer_tpu_torch.ops import cuda_sym, split
     from ephemeris_explorer_tpu_torch.ops import expansion as ex
     from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
     from ephemeris_explorer_tpu_torch.parallel import sharding as sh
@@ -301,7 +332,11 @@ def main(argv=None) -> int:
                  "accel_df64_ensemble": cuda_nbody.pairwise_accel_df64_ensemble,
                  "accel_df64_rows": cuda_nbody.pairwise_accel_df64_rows,
                  "accel_limbs3_rows": cuda_limbs.pairwise_accel_limbs_pair_rows,
-                 "strong_corr_dd": cuda_split.strong_correction_dd}
+                 "strong_corr_dd": cuda_split.strong_correction_dd,
+                 "elm2f_update_packed": cuda_elm2.elm2f_update_packed,
+                 "elm2q_update_packed": cuda_elm2q.elm2q_update_packed,
+                 "accel_sym": cuda_sym.pairwise_accel_df64_sym,
+                 "gen_scan": cuda_gen.elm2_gen_scan}
 
     def reset_counts():
         for fn in launchers.values():
@@ -577,6 +612,7 @@ def main(argv=None) -> int:
             record.setdefault(k, {})["launches"] = launches[k]
 
     # -- phase 7: full_solar_system, one year --------------------------------
+    fss_year = {}  # phase 7's native-f64 year, which path F compares with
     if 7 in phases:
         fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
         year = port.Duration.from_days(365.25)
@@ -586,6 +622,7 @@ def main(argv=None) -> int:
         e_gpu = eph.generate_ephemeris(fss.state, fss.settings, year, device=dev)
         torch.cuda.synchronize()
         t_year = time.perf_counter() - t0
+        fss_year["f64"] = e_gpu
         e_cpu = eph.generate_ephemeris(fss.state, fss.settings, port.Duration.from_days(30),
                                        device="cpu")
         c_cpu = {n: e_cpu[n].coeffs for n in e_cpu.names}
@@ -662,8 +699,9 @@ def main(argv=None) -> int:
         print(json.dumps({"phase": 8, "kernel": "accel_limbs3", "cases": out,
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
-    # expansion-state startups (kernel 3 for every force), shared by 9 and 10
-    if phases & {9, 10}:
+    # expansion-state startups (kernel 3 for every force), shared by 9, 10,
+    # 22 and 28
+    if phases & {9, 10, 22, 28}:
         cl_limbs, cl_pair = limb_forces(mu_dev)
 
         def kernel1_accel(t, y):
@@ -1463,6 +1501,401 @@ def main(argv=None) -> int:
                           "path_s": t_path, "phase_s": time.perf_counter() - t_phase,
                           "card": smi}))
 
+    # -- slice 5: kernels 2', 4', 10 and 11, paths F-I ---------------------------
+    slice5 = {}
+
+    def cluster_qf():
+        """Path B's start (bench.py:bench_parity's startup), shared by 22 and 28."""
+        if "qf0" not in slice5:
+            slice5["qf0"] = ms.elm2_qf_from_q(init_cluster())
+            torch.cuda.synchronize()
+        return slice5["qf0"]
+
+    # -- phase 22: kernels 2' and 4', the packed entry points ------------------
+    if 22 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        rng = np.random.default_rng(31)
+        small = TwoFloat(*cuda_nbody.split_f64(torch.as_tensor(
+            rng.normal(size=(12, 8, 12)) * 1e8, device=dev)))
+        small_dd = TwoFloat(*cuda_nbody.split_f64(torch.as_tensor(
+            rng.normal(size=(12, 8, 12)) * 1e-6, device=dev)))
+        fp0 = ms.elm2_fp_from(ensemble_start()["f0"])
+        qfp0 = ms.elm2_qfp_from(cluster_qf())
+        small_q = tuple(l.reshape(12, 8, 12) for l in ex.from_f64_host(
+            rng.normal(size=(12, 96)) * 1e8, dev))
+        f_cases = [("ensemble16x4096", fp0.ys, fp0.dd), ("n32", small, small_dd)]
+        q_cases = [("cluster4096", qfp0.ys, qfp0.dd), ("n32", small_q, small_dd)]
+        coef, c_y = cuda_elm2._tables(tab, H)
+        for name, ys, dd in f_cases:
+            k = cuda_elm2.elm2f_update_packed(tab, H, ys, dd)
+            p = cuda_elm2.elm2f_update_plain(coef, c_y, ys, dd)
+            u = cuda_elm2.elm2f_update(tab, H, TwoFloat(*(x.reshape(12, -1) for x in ys)),
+                                       TwoFloat(*(x.reshape(12, -1) for x in dd)))
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(k.hi, p.hi) and torch.equal(k.lo, p.lo))
+            unpacked = bool(torch.equal(k.hi, u.hi.reshape(k.hi.shape))
+                            and torch.equal(k.lo, u.lo.reshape(k.lo.shape)))
+            diff = ((k.hi.to(f64) - p.hi.to(f64)) + (k.lo.to(f64) - p.lo.to(f64))).abs().max().item()
+            check(bitwise and unpacked, f"kernel 2' on {name}: bitwise to plain {bitwise}, "
+                                        f"to the unpacked entry point {unpacked}")
+            case = {"kernel": "elm2f_update_packed", "input": name, "shape": list(ys.hi.shape),
+                    "bitwise": bitwise, "bitwise_to_unpacked": unpacked, "max_abs_err": diff,
+                    "kernel_us": cuda_ms(lambda: cuda_elm2.elm2f_update_packed(tab, H, ys, dd),
+                                         200) * 1e3,
+                    "kernel_device_us": graph_ms(
+                        lambda: cuda_elm2.elm2f_update_packed(tab, H, ys, dd), 200) * 1e3,
+                    "plain_us": cuda_ms(lambda: cuda_elm2.elm2f_update_plain(coef, c_y, ys, dd),
+                                        20) * 1e3}
+            if name == "ensemble16x4096":
+                case["bound"] = bound_of(lambda: cuda_elm2.elm2f_update_plain(coef, c_y, ys, dd),
+                                         [*ys, *dd, *k])
+                record["elm2f_update_packed"] = kernel_record(
+                    diff, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        for name, ys, dd in q_cases:
+            for precise in (False, True):
+                tables = cuda_elm2q._tables(tab, H, precise)
+                k = cuda_elm2q.elm2q_update_packed(tab, H, ys, dd, precise=precise)
+                p = cuda_elm2q.elm2q_update_plain(*tables, ys, dd, precise)
+                u = cuda_elm2q.elm2q_update(tab, H, tuple(l.reshape(12, -1) for l in ys),
+                                            TwoFloat(*(x.reshape(12, -1) for x in dd)),
+                                            precise=precise)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(k, p))
+                unpacked = all(torch.equal(a, b.reshape(a.shape)) for a, b in zip(k, u))
+                diff = sum(a.to(f64) - b.to(f64) for a, b in zip(k, p)).abs().max().item()
+                check(bitwise and unpacked, f"kernel 4' on {name} (precise={precise}): bitwise "
+                                            f"to plain {bitwise}, to the unpacked {unpacked}")
+                case = {"kernel": "elm2q_update_packed", "input": name, "precise": precise,
+                        "shape": list(ys[0].shape), "bitwise": bitwise,
+                        "bitwise_to_unpacked": unpacked, "max_abs_err": diff,
+                        "kernel_us": cuda_ms(lambda: cuda_elm2q.elm2q_update_packed(
+                            tab, H, ys, dd, precise=precise), 200) * 1e3,
+                        "kernel_device_us": graph_ms(lambda: cuda_elm2q.elm2q_update_packed(
+                            tab, H, ys, dd, precise=precise), 200) * 1e3,
+                        "plain_us": cuda_ms(lambda: cuda_elm2q.elm2q_update_plain(
+                            *tables, ys, dd, precise), 5, 1) * 1e3}
+                if name == "cluster4096" and precise:
+                    case["bound"] = bound_of(
+                        lambda: cuda_elm2q.elm2q_update_plain(*tables, ys, dd, precise),
+                        [*ys, *dd, *k])
+                    record["elm2q_update_packed"] = kernel_record(
+                        diff, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+                out.append(case)
+        print(json.dumps({"phase": 22, "kernel": "elm2f_update_packed, elm2q_update_packed",
+                          "cases": out, "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 23: kernel 10 against its plain version and kernel 1 ------------
+    if 23 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for n in (N_BODIES, 1024, 96):
+            p_np, _, m_np = _cluster(n, seed=5)
+            tp, tm = dev64(p_np, m_np)
+            ph, pl = cuda_nbody.split_f64(tp, transpose=True)
+            mh, ml = cuda_nbody.split_f64(tm.reshape(1, -1))
+            raw = cuda_sym.pairwise_accel_df64_sym(ph, pl, mh, ml)
+            plain = cuda_sym.pairwise_accel_df64_sym_plain(ph, pl, mh, ml)
+            k1 = cuda_nbody.combine_f64(*cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml))
+            torch.cuda.synchronize()
+            k, r = cuda_nbody.combine_f64(*raw), cuda_nbody.combine_f64(*plain)
+            bitwise = bool(torch.equal(raw[0], plain[0]) and torch.equal(raw[1], plain[1]))
+            abs_err = (k - r).abs().max().item()
+            vs_k1 = (k - k1).abs().max().item() / k1.abs().max().item()
+            check(bool(torch.isfinite(k).all()), f"kernel 10 non-finite at N = {n}")
+            check(abs_err <= SYM_VS_KERNEL1 * r.abs().max().item(),
+                  f"kernel 10 vs plain at N = {n}: {abs_err}")
+            check(vs_k1 <= SYM_VS_KERNEL1, f"kernel 10 vs kernel 1 at N = {n}: {vs_k1}")
+            case = {"n": n, "bitwise": bitwise, "max_abs_err": abs_err,
+                    "rel_err_vs_kernel1": vs_k1, "bar": SYM_VS_KERNEL1,
+                    **timed(lambda: cuda_sym.pairwise_accel_df64_sym(ph, pl, mh, ml),
+                            lambda: cuda_sym.pairwise_accel_df64_sym_plain(ph, pl, mh, ml))}
+            case["kernel1_device_us"] = graph_ms(
+                lambda: cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml), 20) * 1e3
+            if n == N_BODIES:
+                case["bound"] = bound_of(
+                    lambda: cuda_sym.pairwise_accel_df64_sym_plain(ph, pl, mh, ml),
+                    [ph, pl, mh, ml, *raw])
+                record["accel_sym"] = kernel_record(
+                    abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
+            out.append(case)
+        print(json.dumps({"phase": 23, "kernel": "accel_sym", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 24: kernel 11 against its plain version ----------------------------
+    if 24 in phases:
+        t_phase = time.perf_counter()
+        out = []
+        for name in GEN_SCENES:
+            sc = scene.load_scene(ROOT / "systems" / name)
+            h = sc.settings.dt.as_seconds()
+            m64 = torch.as_tensor(sc.state.mus(), dtype=f64, device=dev)
+            c0 = ms.elm2_init(tab, lambda t, y: nbody.pairwise_accel(y, m64), 0.0,
+                              torch.as_tensor(sc.state.positions(), dtype=f64, device=dev),
+                              torch.as_tensor(sc.state.velocities(), dtype=f64, device=dev), h)
+            mu_pair = TwoFloat(*cuda_nbody.split_f64(m64.reshape(1, -1)))
+            ys, c = cuda_gen.elm2_gen_scan(tab, h, c0, mu_pair, GEN_CHECK_STEPS)
+            ysp, cp = cuda_gen.elm2_gen_scan_plain(tab, h, c0, mu_pair, GEN_CHECK_STEPS)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(ys, ysp) and torch.equal(c.ys, cp.ys)
+                           and torch.equal(c.ddys, cp.ddys))
+            abs_err = (ys - ysp).abs().max().item()
+            ymax = ysp.abs().max().item()
+            check(bool(torch.isfinite(ys).all()), f"kernel 11 non-finite on {name}")
+            check(abs_err <= GEN_VS_PLAIN * ymax, f"kernel 11 vs plain on {name}: {abs_err / ymax}")
+            check(torch.equal(ys[-1], c.ys[0]), f"kernel 11's last emission is not the ring head "
+                                                f"on {name}")
+            kms = cuda_ms(lambda: cuda_gen.elm2_gen_scan(tab, h, c0, mu_pair, GEN_CHECK_STEPS), 5)
+            pms = cuda_ms(lambda: cuda_gen.elm2_gen_scan_plain(tab, h, c0, mu_pair,
+                                                               GEN_CHECK_STEPS), 1, 1)
+            case = {"scene": name, "n": sc.state.n, "padded_n": 1 << (sc.state.n - 1).bit_length(),
+                    "steps": GEN_CHECK_STEPS, "bitwise": bitwise, "max_abs_err": abs_err,
+                    "rel_err_vs_plain": abs_err / ymax, "bar": GEN_VS_PLAIN,
+                    "kernel_us": kms * 1e3, "kernel_us_per_step": kms * 1e3 / GEN_CHECK_STEPS,
+                    "plain_us": pms * 1e3}
+            if name == GEN_SCENES[0]:
+                case["bound"] = bound_of(
+                    lambda: cuda_gen.elm2_gen_scan_plain(tab, h, c0, mu_pair, GEN_CHECK_STEPS),
+                    [c0.ys, c0.ddys, *mu_pair, ys, c.ys, c.ddys])
+                record["gen_scan"] = kernel_record(abs_err, kms, pms, case["bound"])
+            out.append(case)
+        print(json.dumps({"phase": 24, "kernel": "gen_scan", "cases": out,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
+    # -- phase 25: path F, a year of full_solar_system through kernel 11 -----------
+    if 25 in phases:
+        t_phase = time.perf_counter()
+        fss_mu = torch.as_tensor(fss.state.mus(), dtype=f64, device=dev)
+        h = fss.settings.dt.as_seconds()
+
+        def accel64(t, y):
+            return nbody.pairwise_accel(y, fss_mu)
+
+        # the native-f64 startup, as generation runs it
+        t_s, dy_s, ys_fwd, dd_fwd = ms.elm2_startup_scan(
+            tab, accel64, 0.0, torch.as_tensor(fss.state.positions(), dtype=f64, device=dev),
+            torch.as_tensor(fss.state.velocities(), dtype=f64, device=dev), h)
+        c0 = ms.ELM2Carry(t=t_s, ys=ys_fwd.flip(0), ddys=dd_fwd.flip(0), dy=dy_s)
+        mu_pair = TwoFloat(*cuda_nbody.split_f64(fss_mu.reshape(1, -1)))
+        n_chunks, rest = divmod(GEN_YEAR_STEPS, eph.CHUNK_STEPS)
+        chunks = [eph.CHUNK_STEPS] * n_chunks + ([rest] if rest else [])
+        cuda_gen.elm2_gen_scan(tab, h, c0, mu_pair, 16)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        c, first = c0, None
+        for steps in chunks:
+            ys, c = cuda_gen.elm2_gen_scan(tab, h, c, mu_pair, steps)
+            first = c if first is None else first
+        c = c._replace(dy=ms.elm2_velocity(tab, c, h))
+        torch.cuda.synchronize()
+        t_year = time.perf_counter() - t0
+        launches_f = read_counts()
+        check(launches_f["gen_scan"] == len(chunks) and sum(launches_f.values()) == len(chunks),
+              f"path F: launches {launches_f}, expected one of kernel 11 per chunk")
+        chunk_ms = cuda_ms(lambda: cuda_gen.elm2_gen_scan(tab, h, c0, mu_pair, eph.CHUNK_STEPS),
+                           1, 0)
+        # the reference test's invariants
+        emission_is_head = bool(torch.equal(ys[-1], c.ys[0]))
+        f_head = accel64(c.t, c.ys[0])
+        head_err = ((c.ddys[0] - f_head).abs().max() / f_head.abs().max()).item()
+        check(emission_is_head, "path F: the last emission is not the committed ring head")
+        check(head_err <= KERNEL1_VS_F64_FSS, f"path F: force ring head vs f64: {head_err}")
+        check(bool(torch.isfinite(c.ys).all() and torch.isfinite(c.dy).all()),
+              "path F state non-finite")
+        # after the first chunk, against native f64 beside the fused two-float step
+        mh, ml = mu_pair
+
+        def kernel1_pair(t, y):
+            return TwoFloat(*cuda_nbody.pairwise_accel_df64(y.hi.t().contiguous(),
+                                                            y.lo.t().contiguous(), mh, ml))
+
+        cn, cf = c0, ms.elm2_f_from(c0)
+        for _ in range(chunks[0]):
+            cn = ms.elm2_step(tab, accel64, h, cn, with_velocity=False)
+            cf = ms.elm2_step_f(tab, kernel1_pair, h, cf)
+        y64 = cn.ys[0]
+        d_gen = first.ys[0] - y64
+        d_f = cf.ys.hi[0].to(f64) + cf.ys.lo[0].to(f64) - y64
+        err_gen, err_f = d_gen.abs().max().item(), d_f.abs().max().item()
+        env = max(GEN_ENVELOPE * err_f, GEN_FLOOR * y64.abs().max().item())
+        check(err_gen <= env, f"path F after {chunks[0]} steps: {err_gen} km > {env} km")
+
+        def worst_bodies(d, k=4):
+            """The k bodies farthest from native f64, with their distance in km."""
+            dist = d.norm(dim=1)
+            top = dist.topk(k).indices.tolist()
+            return {fss.state.bodies[b].name: dist[b].item() for b in top}
+
+        # generation through the private gate, against native f64 and the fused route
+        year = port.Duration.from_days(365.25)
+
+        def generate(gate):
+            saved = getattr(eph, gate) if gate else None
+            if gate:
+                setattr(eph, gate, lambda n, d: True)
+            try:
+                t0 = time.perf_counter()
+                e = eph.generate_ephemeris(fss.state, fss.settings, year, device=dev)
+                torch.cuda.synchronize()
+                return e, time.perf_counter() - t0
+            finally:
+                if gate:
+                    setattr(eph, gate, saved)
+
+        reset_counts()
+        e_gen, t_gen = generate("_use_gen_kernel")
+        launches_gen = read_counts()
+        check(launches_gen["gen_scan"] > 0 and launches_gen["accel_df64"] == 0,
+              f"path F generation did not run kernel 11 alone: {launches_gen}")
+        e_fused, _ = generate("_use_fused_f")
+        e_64 = fss_year["f64"] if "f64" in fss_year else generate(None)[0]
+        coeffs = {k: {n: e[n].coeffs for n in e.names}
+                  for k, e in (("gen", e_gen), ("fused", e_fused), ("f64", e_64))}
+        cerr_gen = _coeff_err(coeffs["f64"], coeffs["gen"], fss.settings)
+        cerr_fused = _coeff_err(coeffs["f64"], coeffs["fused"], fss.settings)
+        cbar = max(GEN_ENVELOPE * cerr_fused, FSS_BOUND)
+        check(cerr_gen <= cbar, f"path F generation vs f64: {cerr_gen} > {cbar}")
+        record.setdefault("gen_scan", {})["launches"] = launches_f["gen_scan"]
+        print(json.dumps({
+            "phase": 25, "path": "F", "scene": "full_solar_system_2433282.5", "n": fss.state.n,
+            "steps": GEN_YEAR_STEPS, "chunks": chunks, "launches": launches_f,
+            "launches_per_chunk": launches_f["gen_scan"] / len(chunks),
+            "integration_s": t_year,
+            "integration_sim_days_per_s": GEN_YEAR_STEPS * h / 86400.0 / t_year,
+            "chunk_ms": chunk_ms, "kernel_us_per_step": chunk_ms * 1e3 / eph.CHUNK_STEPS,
+            "year_loop_us_per_step": t_year * 1e6 / GEN_YEAR_STEPS,
+            "generation_s": t_gen, "generation_sim_days_per_s": 365.25 / t_gen,
+            "generation_launches": launches_gen,
+            f"err_km_after_{chunks[0]}": err_gen, f"fused_err_km_after_{chunks[0]}": err_f,
+            "worst_bodies_km": worst_bodies(d_gen), "fused_worst_bodies_km": worst_bodies(d_f),
+            "envelope_km": env, "last_emission_is_ring_head": emission_is_head,
+            "force_head_rel_err_vs_f64": head_err, "force_head_bar": KERNEL1_VS_F64_FSS,
+            "coeff_err_vs_f64": cerr_gen, "fused_coeff_err_vs_f64": cerr_fused,
+            "coeff_bar": cbar, "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
+    # -- phase 26: path G, kernel 10 at cluster4096 -------------------------------
+    if 26 in phases:
+        t_phase = time.perf_counter()
+        p64 = torch.as_tensor(pos, dtype=f64, device=dev)
+
+        def sym_loop(p, evals):  # as path C's loops: each evaluation moves the state
+            for _ in range(evals):
+                p = p + cuda_sym.pairwise_accel_sym(p, mu_hi, mu_lo) * 1e-30
+            return p
+
+        sym_loop(p64, 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        end = sym_loop(p64, LADDER_EVALS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches_g = read_counts()
+        check(launches_g["accel_sym"] == LADDER_EVALS and sum(launches_g.values()) == LADDER_EVALS,
+              f"path G: launches {launches_g}, expected {LADDER_EVALS} of kernel 10")
+        check(bool(torch.isfinite(end).all()), "path G state non-finite")
+        ph, pl = cuda_nbody.split_f64(p64, transpose=True)
+        sym_us = graph_ms(lambda: cuda_sym.pairwise_accel_df64_sym(ph, pl, mu_hi, mu_lo), 20) * 1e3
+        k1_us = graph_ms(lambda: cuda_nbody.pairwise_accel_df64(ph, pl, mu_hi, mu_lo), 20) * 1e3
+
+        # a 25-step fused scan with kernel 10 as the force, against kernel 1's
+        def sym_pair(t, y):
+            return TwoFloat(*cuda_sym.pairwise_accel_df64_sym(
+                y.hi.t().contiguous(), y.lo.t().contiguous(), mu_hi, mu_lo))
+
+        f0 = ms.elm2_f_from(ms.elm2_init(tab, lambda t, y: nbody.pairwise_accel(y, mu_dev), 0.0,
+                                         p64, torch.as_tensor(vel, dtype=f64, device=dev), H))
+        cs, ck = f0, f0
+        for _ in range(EARLY_STEPS):
+            cs = ms.elm2_step_f(tab, sym_pair, H, cs)
+            ck = ms.elm2_step_f(tab, accel_pair_square, H, ck)
+        ys_ = cs.ys.hi[0].to(f64) + cs.ys.lo[0].to(f64)
+        yk = ck.ys.hi[0].to(f64) + ck.ys.lo[0].to(f64)
+        scan_diff = ((ys_ - yk).abs().max() / yk.abs().max()).item()
+        check(scan_diff <= EARLY_BOUND, f"path G scan vs kernel 1's after {EARLY_STEPS}: {scan_diff}")
+        record.setdefault("accel_sym", {})["launches"] = launches_g["accel_sym"]
+        print(json.dumps({
+            "phase": 26, "path": "G", "n": N_BODIES, "evals": LADDER_EVALS, "launches": launches_g,
+            "path_s": elapsed, "force_evals_per_s_x_bodies": N_BODIES * LADDER_EVALS / elapsed,
+            "kernel10_device_us": sym_us, "kernel1_device_us": k1_us,
+            f"scan_rel_diff_vs_kernel1_after_{EARLY_STEPS}": scan_diff, "bound": EARLY_BOUND,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
+    # -- phase 27: path H, ensemble16x4096 on the packed carry --------------------
+    if 27 in phases:
+        t_phase = time.perf_counter()
+        start = ensemble_start()
+        shape = (ENSEMBLE, N_BODIES, 3)
+        run25, to_fp = sh.make_fused_ensemble_scan_fp(tab, mu, H, EARLY_STEPS, shape, device=dev)
+        fp0 = to_fp(start["carry0"])
+        back = ms.elm2_fp_to(run25(fp0), shape)
+        ref = start["f25"]
+        packed_is_unpacked = all(torch.equal(a, b) for a, b in zip(
+            (*back.ys, *back.dd, back.dy), (*ref.ys, *ref.dd, ref.dy)))
+        check(packed_is_unpacked, f"path H after {EARLY_STEPS} steps is not path D's scan bitwise")
+        run50, _ = sh.make_fused_ensemble_scan_fp(tab, mu, H, ENS_SCAN_STEPS, shape, device=dev)
+        c = run50(fp0)  # warm-up scan
+        torch.cuda.synchronize()
+        reset_counts()
+        scan_s = []
+        for _ in range(ENS_TIMED_SCANS):
+            t0 = time.perf_counter()
+            c = run50(c)
+            torch.cuda.synchronize()
+            scan_s.append(time.perf_counter() - t0)
+        launches_h = read_counts()
+        steps = ENS_SCAN_STEPS * ENS_TIMED_SCANS
+        check(launches_h["accel_df64_ensemble"] == steps
+              and launches_h["elm2f_update_packed"] == steps
+              and sum(launches_h.values()) == 2 * steps,
+              f"path H: launches {launches_h}, expected {steps} each of kernels 1-ensemble and 2'")
+        check(bool(torch.isfinite(c.ys.hi).all() and torch.isfinite(c.dy).all()),
+              "path H state non-finite")
+        record.setdefault("elm2f_update_packed", {})["launches"] = launches_h["elm2f_update_packed"]
+        print(json.dumps({
+            "phase": 27, "path": "H", "config": "ensemble16x4096", "e": ENSEMBLE, "n": N_BODIES,
+            "scan_steps": ENS_SCAN_STEPS, "timed_scans": ENS_TIMED_SCANS, "scan_s": scan_s,
+            "body_steps_per_s": ENSEMBLE * N_BODIES * steps / sum(scan_s),
+            "us_per_step": sum(scan_s) / steps * 1e6, "launches": launches_h,
+            f"bitwise_to_path_D_after_{EARLY_STEPS}": packed_is_unpacked,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
+    # -- phase 28: path I, the packed parity step at N = 4096 ---------------------
+    if 28 in phases:
+        t_phase = time.perf_counter()
+        q0 = cluster_qf()
+        shape = (N_BODIES, 3)
+        qfp = ms.elm2_qfp_from(q0)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(EARLY_STEPS):
+            qfp = ms.elm2_step_qfp(tab, cl_pair, H, qfp, shape, precise_sums=True)
+        torch.cuda.synchronize()
+        t_packed = time.perf_counter() - t0
+        launches_i = read_counts()
+        check(launches_i["elm2q_update_packed"] == EARLY_STEPS
+              and launches_i["accel_limbs3"] == EARLY_STEPS
+              and sum(launches_i.values()) == 2 * EARLY_STEPS,
+              f"path I: launches {launches_i}, expected {EARLY_STEPS} each of kernels 4' and 3")
+        ref = q0
+        for _ in range(EARLY_STEPS):
+            ref = ms.elm2_step_qf(tab, cl_pair, H, ref, precise_sums=True)
+        back = ms.elm2_qfp_to(qfp, shape)
+        same = all(torch.equal(a, b) for a, b in zip((*back.ys, *back.dd), (*ref.ys, *ref.dd)))
+        check(same, f"path I after {EARLY_STEPS} steps is not path B's elm2_step_qf bitwise")
+        record.setdefault("elm2q_update_packed", {})["launches"] = launches_i["elm2q_update_packed"]
+        print(json.dumps({
+            "phase": 28, "path": "I", "n": N_BODIES, "steps": EARLY_STEPS, "launches": launches_i,
+            "path_s": t_packed, "body_steps_per_s": N_BODIES * EARLY_STEPS / t_packed,
+            f"bitwise_to_elm2_step_qf_after_{EARLY_STEPS}": same,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
     if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
     pallas = "ephemeris_explorer_tpu/ops/pallas_nbody.py"
@@ -1484,8 +1917,16 @@ def main(argv=None) -> int:
             ("accel_f32_masked", "accel_f32.cu", f"{pallas}:971"),
             ("strong_corr", "strong_corr.cu", f"{pallas}:1258"),
             ("strong_corr_dd", "strong_corr.cu", f"{pallas}:1171"),
+            ("elm2f_update_packed", "elm2f_update.cu",
+             "ephemeris_explorer_tpu/ops/pallas_elm2.py:442"),
+            ("elm2q_update_packed", "elm2q_update.cu",
+             "ephemeris_explorer_tpu/ops/pallas_elm2.py:475"),
+            ("accel_sym", "accel_sym.cu", f"{pallas}:593"),
+            ("gen_scan", "gen_scan.cu", "ephemeris_explorer_tpu/ops/pallas_gen.py:88"),
         )
     ]
+    # kernel 11 runs one block: its bound is over the whole card, the kernel on one SM of 132
+    kernels[-1]["note"] = "bound_ms is over the whole card; the kernel runs one block on one SM"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

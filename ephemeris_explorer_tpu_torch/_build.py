@@ -140,6 +140,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_strong_corr.restype = _int
     lib.eet_strong_corr_dd.argtypes = [_vp] * 5 + [_int, _int, _vp]
     lib.eet_strong_corr_dd.restype = _int
+    lib.eet_accel_sym.argtypes = [_vp] * 10 + [_int, _vp]
+    lib.eet_accel_sym.restype = _int
+    lib.eet_gen_scan.argtypes = [_vp, _vp, _int] + [_vp] * 12 + [_int, _int, _vp]
+    lib.eet_gen_scan.restype = _int
     return lib
 
 

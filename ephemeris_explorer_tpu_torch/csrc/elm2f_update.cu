@@ -28,20 +28,12 @@
 
 #include <cuda_runtime.h>
 
-#include "twofloat.cuh"
+#include "elm2f.cuh"
 
 namespace {
 
+using eet::Elm2Coef;
 using eet::TF;
-
-constexpr int kMaxOrder = 16;
-
-struct Elm2Coef {
-  float dy_hi[kMaxOrder + 1];  // split c_dy rows, then h^2/beta_d at [order]
-  float dy_lo[kMaxOrder + 1];
-  float cy[kMaxOrder];
-  int order;
-};
 
 __global__ void elm2f_update_kernel(Elm2Coef cf, const float* __restrict__ ys_hi,
                                     const float* __restrict__ ys_lo,
@@ -49,32 +41,10 @@ __global__ void elm2f_update_kernel(Elm2Coef cf, const float* __restrict__ ys_hi
                                     const float* __restrict__ dd_lo,
                                     float* __restrict__ out_hi, float* __restrict__ out_lo,
                                     int m) {
-  using namespace eet;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m) return;
-
-  TF acc{0.0f, 0.0f};
-  bool first = true;
-  for (int j = 0; j < cf.order; ++j) {
-    if (cf.dy_hi[j] == 0.0f) continue;
-    const size_t at = static_cast<size_t>(j) * m + e;
-    TF term = mul(TF{dd_hi[at], dd_lo[at]}, TF{cf.dy_hi[j], cf.dy_lo[j]});
-    acc = first ? term : add(acc, term);
-    first = false;
-  }
-  TF inc = mul(acc, TF{cf.dy_hi[cf.order], cf.dy_lo[cf.order]});
-
-  TF sum{0.0f, 0.0f};
-  first = true;
-  for (int j = 0; j < cf.order; ++j) {
-    const float c = cf.cy[j];
-    if (c == 0.0f) continue;
-    const size_t at = static_cast<size_t>(j) * m + e;
-    TF term{fmul(ys_hi[at], c), fmul(ys_lo[at], c)};
-    sum = first ? term : add(sum, term);
-    first = false;
-  }
-  TF y = add(sum, inc);
+  const TF y = eet::elm2f_point(cf, ys_hi, ys_lo, dd_hi, dd_lo,
+                                [=](int j) { return static_cast<size_t>(j) * m + e; });
   out_hi[e] = y.hi;
   out_lo[e] = y.lo;
 }
@@ -89,14 +59,8 @@ extern "C" {
 int eet_elm2f_update(const float* coef, const float* c_y, int order, const float* ys_hi,
                      const float* ys_lo, const float* dd_hi, const float* dd_lo,
                      float* out_hi, float* out_lo, int m, cudaStream_t stream) {
-  if (order < 1 || order > kMaxOrder) return -1;
-  Elm2Coef cf{};
-  cf.order = order;
-  for (int j = 0; j <= order; ++j) {
-    cf.dy_hi[j] = coef[2 * j];
-    cf.dy_lo[j] = coef[2 * j + 1];
-  }
-  for (int j = 0; j < order; ++j) cf.cy[j] = c_y[j];
+  Elm2Coef cf;
+  if (!eet::elm2_coef(coef, c_y, order, &cf)) return -1;
   constexpr int kBlock = 256;
   elm2f_update_kernel<<<(m + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
       cf, ys_hi, ys_lo, dd_hi, dd_lo, out_hi, out_lo, m);

@@ -1,7 +1,8 @@
 // Pieces shared by the two-float pair-force kernels (accel_df64.cu, kernel
-// 1, and accel_limbs3.cu, kernel 3): the tile width, the squaring and rsqrt
-// steps of the per-pair chain, and the pass that adds the per-split partial
-// sums in split order.
+// 1, accel_limbs3.cu, kernel 3, strong_corr.cu, kernels 8-9, accel_sym.cu,
+// kernel 10, gen_scan.cu, kernel 11): the tile width, the squaring and rsqrt
+// steps of the per-pair chain, the leaf order of the reference's tree sum,
+// and the pass that adds the per-split partial sums in split order.
 
 #pragma once
 
@@ -13,6 +14,24 @@ namespace eet {
 
 // receivers per block, and sources per shared-memory tile
 constexpr int kPairTile = 128;
+
+// The reference's `_dd_tree_sum` (pallas_nbody.py:47) halves as a[k] =
+// add_sloppy(a[k], a[k + m]), so leaf j meets leaf j XOR m first: walking
+// the leaves in bit-reversed order t -> rev(t) turns it into the
+// adjacent-pairs tree, which a stack of partial sums reduces as the leaves
+// arrive (a binary counter: pop_count(t) partials are on the stack before
+// leaf t; after it, merge ctz(t + 1) times, the earlier partial first).
+__host__ __device__ constexpr int bit_reverse(int t, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((t >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+__host__ __device__ constexpr int pop_count(int t) {
+  int c = 0;
+  for (; t; t &= t - 1) ++c;
+  return c;
+}
 
 // x * x with the split of x.hi supplied (pallas_nbody._sqr_presplit).
 __device__ __forceinline__ TF sqr_presplit(TF x, TF xs) {

@@ -64,18 +64,6 @@ using eet::TF;
 
 constexpr int kBlock = 64;
 
-__host__ __device__ constexpr int bit_reverse(int t, int bits) {
-  int r = 0;
-  for (int b = 0; b < bits; ++b) r |= ((t >> b) & 1) << (bits - 1 - b);
-  return r;
-}
-
-__host__ __device__ constexpr int pop_count(int t) {
-  int c = 0;
-  for (; t; t &= t - 1) ++c;
-  return c;
-}
-
 // Kernel 8's feed: (hi, lo) f32 limbs, d = sub(p_j, p_i) in two-float.
 struct LimbFeed {
   const float *pos_hi, *pos_lo, *rows_hi, *rows_lo, *mu_hi, *mu_lo;

@@ -16,7 +16,9 @@ NBodyPropagator + SplineInterpolators + UniformSpline,
 Routing at ``precision="f64"``: below ``N*3 = 4096`` (and off CUDA) each
 step is the plain native-f64 ``elm2_step``.  From there on a CUDA device,
 the chunk runs the fused two-float step: kernel 2 for the position update
-and kernel 1 for the force (:func:`_use_fused_f`).
+and kernel 1 for the force (:func:`_use_fused_f`).  A third branch runs
+the whole chunk in kernel 11 (:func:`_use_gen_kernel`), off as in the JAX
+package.
 
 ``precision="extended"`` / ``"extended3"`` keep positions as 4-limb f32
 expansions (``elm2_init_q`` from the exact host limb split, then
@@ -53,7 +55,7 @@ from .integrators.multistep import (
     elm2_velocity_q,
 )
 from .io.scene import DIV, EphemeridesSettings, SolarSystemState
-from .ops import cuda_limbs, cuda_nbody, nbody
+from .ops import cuda_gen, cuda_limbs, cuda_nbody, nbody
 from .ops import expansion as ex
 from .ops.eft import TwoFloat
 from .ops.polyfit import MAX_COEFFS, fit_matrices, horner, horner_and_deriv
@@ -456,6 +458,18 @@ def _use_fused_f(n_bodies: int, device: torch.device) -> bool:
     return n_bodies * 3 >= 4096 and device.type == "cuda"
 
 
+def _use_gen_kernel(n_bodies: int, device: torch.device) -> bool:
+    """Route a chunk through the whole-chunk generation kernel (kernel 11,
+    :func:`.ops.cuda_gen.elm2_gen_scan`)?
+
+    Off, as the JAX package's ``gen_kernel = False`` is: taking it would
+    switch ``"f64"`` generation from native f64 to two-float state, a
+    decision that waits for accuracy numbers.  Tests reach the branch by
+    patching this gate.
+    """
+    return False
+
+
 EXTENDED = ("extended", "extended3")
 
 
@@ -515,6 +529,11 @@ def _chunk_fn(spec: GenSpec, precision: str, n_scan: int, startup: bool):
                 if need[row]:
                     rec.append(ex.to_f64(tuple(l[0] for l in ms.ys)))
                 row += 1
+        elif n_scan > 0 and _use_gen_kernel(len(counts), mu.device):
+            mu_hi, mu_lo = cuda_nbody.split_f64(mu.reshape(1, -1))
+            scan_ys, ms = cuda_gen.elm2_gen_scan(tab, h, ms, TwoFloat(mu_hi, mu_lo), n_scan)
+            rec += [scan_ys[i] for i in np.flatnonzero(need[row:row + n_scan])]
+            row += n_scan
         elif n_scan > 0 and _use_fused_f(len(counts), mu.device):
             mu_hi, mu_lo = cuda_nbody.split_f64(mu.reshape(1, -1))
 

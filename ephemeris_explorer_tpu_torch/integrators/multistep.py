@@ -19,9 +19,10 @@ as (hi, lo) f32 pairs and updates them with kernel 2
 positions as 4-limb f32 expansions: :class:`ELM2CarryQ` (f64 force ring,
 :func:`elm2_step_q`, the extended generation precisions) and
 :class:`ELM2CarryQF` (pair force ring, :func:`elm2_step_qf`, the position
-update in kernel 4, :func:`..ops.cuda_elm2q.elm2q_update`).  The JAX
-package's sublane-packed ``ELM2CarryFP``/``QFP`` are a TPU layout of the
-same numbers and are not ported.
+update in kernel 4, :func:`..ops.cuda_elm2q.elm2q_update`).  The packed
+carries :class:`ELM2CarryFP` and :class:`ELM2CarryQFP` store the same rings
+as (ORDER, SUB, M/SUB), the JAX package's sublane layout, and step through
+the packed entry points of kernels 2 and 4.
 """
 
 from __future__ import annotations
@@ -190,6 +191,89 @@ def elm2_step_f(tab: ELMTableau, accel_pair, h, carry: ELM2CarryF) -> ELM2CarryF
 
 def elm2_velocity_f(tab: ELMTableau, carry: ELM2CarryF, h) -> torch.Tensor:
     return elm2_velocity(tab, elm2_f_to(carry), h)
+
+
+# ---------------------------------------------------------------------------
+# Packed carries: rings stored (ORDER, SUB, M/SUB) across steps
+# ---------------------------------------------------------------------------
+#
+# The JAX package stores these rings with every logical row split over the
+# TPU's 8 sublanes.  On the card the packed ring is the same contiguous
+# memory as the flat (ORDER, M) ring, so the packed update entry points
+# launch kernels 2 and 4 unchanged.  The step is the reference's: the ring
+# shift is a cat in packed layout, and only y_new and f_new cross the
+# packed <-> logical boundary, one row each way per step.
+
+_PACK_SUB = 8
+
+
+def _pack_ring(x: torch.Tensor, sub: int) -> torch.Tensor:
+    """(ORDER, ...) ring -> (ORDER, SUB, M/SUB)."""
+    return x.reshape(x.shape[0], sub, -1)
+
+
+class ELM2CarryFP(NamedTuple):
+    t: float
+    ys: TwoFloat            # (ORDER, SUB, M/SUB) f32 pair ring, newest first
+    dd: TwoFloat            # (ORDER, SUB, M/SUB) f32 pair ring
+    dy: torch.Tensor        # base-precision velocity (stale during scans)
+
+
+def elm2_fp_from(carry: ELM2CarryF, sub: int = _PACK_SUB) -> ELM2CarryFP:
+    """Pack an ELM2CarryF's rings (a reshape; exact)."""
+    return ELM2CarryFP(
+        t=carry.t,
+        ys=TwoFloat(_pack_ring(carry.ys.hi, sub), _pack_ring(carry.ys.lo, sub)),
+        dd=TwoFloat(_pack_ring(carry.dd.hi, sub), _pack_ring(carry.dd.lo, sub)),
+        dy=carry.dy,
+    )
+
+
+def elm2_fp_to(carry: ELM2CarryFP, shape: tuple) -> ELM2CarryF:
+    """Unpack back to the logical row shape (e.g. (N, 3) or (E, N, 3))."""
+    o = carry.ys.hi.shape[0]
+
+    def unp(x):
+        return x.reshape((o, *shape))
+
+    return ELM2CarryF(
+        t=carry.t,
+        ys=TwoFloat(unp(carry.ys.hi), unp(carry.ys.lo)),
+        dd=TwoFloat(unp(carry.dd.hi), unp(carry.dd.lo)),
+        dy=carry.dy,
+    )
+
+
+def elm2_step_fp(tab: ELMTableau, accel_pair, h, carry: ELM2CarryFP, shape: tuple) -> ELM2CarryFP:
+    """One fused two-float step on the packed carry: kernel 2 through its
+    packed entry point (:func:`..ops.cuda_elm2.elm2f_update_packed`).
+
+    ``shape`` is the logical row shape the force expects;
+    ``accel_pair(t, y: TwoFloat(shape)) -> TwoFloat(shape)`` as in
+    :func:`elm2_step_f`.  Bitwise equal to :func:`elm2_step_f` on the
+    unpacked view.  Velocity is deferred (:func:`elm2_velocity_fp`).
+    """
+    from ..ops.cuda_elm2 import elm2f_update_packed
+
+    y_new = elm2f_update_packed(tab, h, carry.ys, carry.dd)
+    t_new = carry.t + h
+    f_rows = accel_pair(t_new, TwoFloat(y_new.hi.reshape(shape), y_new.lo.reshape(shape)))
+    psh = y_new.hi.shape
+    f_new = TwoFloat(f_rows.hi.reshape(psh), f_rows.lo.reshape(psh))
+
+    def shift(new, ring):
+        return torch.cat([new[None], ring[: tab.order - 1]])
+
+    return ELM2CarryFP(
+        t=t_new,
+        ys=TwoFloat(shift(y_new.hi, carry.ys.hi), shift(y_new.lo, carry.ys.lo)),
+        dd=TwoFloat(shift(f_new.hi, carry.dd.hi), shift(f_new.lo, carry.dd.lo)),
+        dy=carry.dy,
+    )
+
+
+def elm2_velocity_fp(tab: ELMTableau, carry: ELM2CarryFP, h, shape: tuple) -> torch.Tensor:
+    return elm2_velocity_f(tab, elm2_fp_to(carry, shape), h)
 
 
 # ---------------------------------------------------------------------------
@@ -548,3 +632,68 @@ def elm2_velocity_qf(
     tab: ELMTableau, carry: ELM2CarryQF, h, precise_sums: bool = False
 ) -> torch.Tensor:
     return elm2_velocity_q(tab, elm2_qf_to_q(carry), h, precise_sums=precise_sums)
+
+
+class ELM2CarryQFP(NamedTuple):
+    t: float
+    ys: tuple               # K-tuple of (ORDER, SUB, M/SUB) f32 limb rings
+    dd: TwoFloat            # (ORDER, SUB, M/SUB) f32 pair ring
+    dy: torch.Tensor        # base-precision velocity (stale during scans)
+
+
+def elm2_qfp_from(carry: ELM2CarryQF, sub: int = _PACK_SUB) -> ELM2CarryQFP:
+    """Pack an ELM2CarryQF's rings (a reshape; exact)."""
+    return ELM2CarryQFP(
+        t=carry.t,
+        ys=tuple(_pack_ring(l, sub) for l in carry.ys),
+        dd=TwoFloat(_pack_ring(carry.dd.hi, sub), _pack_ring(carry.dd.lo, sub)),
+        dy=carry.dy,
+    )
+
+
+def elm2_qfp_to(carry: ELM2CarryQFP, shape: tuple) -> ELM2CarryQF:
+    o = carry.ys[0].shape[0]
+
+    def unp(x):
+        return x.reshape((o, *shape))
+
+    return ELM2CarryQF(
+        t=carry.t,
+        ys=tuple(unp(l) for l in carry.ys),
+        dd=TwoFloat(unp(carry.dd.hi), unp(carry.dd.lo)),
+        dy=carry.dy,
+    )
+
+
+def elm2_step_qfp(
+    tab: ELMTableau, accel_pair, h, carry: ELM2CarryQFP, shape: tuple,
+    precise_sums: bool = False,
+) -> ELM2CarryQFP:
+    """One fused expansion-state step on the packed carry: kernel 4 through
+    its packed entry point (:func:`..ops.cuda_elm2q.elm2q_update_packed`).
+
+    ``accel_pair(t, (l0, l1, l2)) -> (hi, lo)`` with limbs of the logical
+    ``shape``, as in :func:`elm2_step_qf`.  Bitwise equal to
+    :func:`elm2_step_qf` on the unpacked view.
+    """
+    from ..ops.cuda_elm2q import elm2q_update_packed
+
+    y_new = elm2q_update_packed(tab, h, carry.ys, carry.dd, precise=precise_sums)
+    t_new = carry.t + h
+    fh, fl = accel_pair(t_new, tuple(l.reshape(shape) for l in y_new[:3]))
+    psh = y_new[0].shape
+    fh, fl = fh.reshape(psh), fl.reshape(psh)
+
+    def shift(new, ring):
+        return torch.cat([new[None], ring[: tab.order - 1]])
+
+    return ELM2CarryQFP(
+        t=t_new,
+        ys=tuple(shift(nl, ol) for nl, ol in zip(y_new, carry.ys)),
+        dd=TwoFloat(shift(fh, carry.dd.hi), shift(fl, carry.dd.lo)),
+        dy=carry.dy,
+    )
+
+
+def elm2_velocity_qfp(tab: ELMTableau, carry: ELM2CarryQFP, h, shape: tuple) -> torch.Tensor:
+    return elm2_velocity_qf(tab, elm2_qfp_to(carry, shape), h)

@@ -5,11 +5,13 @@ kernel ``_update_kernel2``) and ``elm2_update_coeffs``.  The CUDA source is
 ``csrc/elm2f_update.cu``; its header note says what bounds it on an H100
 and how the design answers that.
 
-:func:`elm2f_update` takes the plain PyTorch version
-(:func:`elm2f_update_plain`) only for CPU tensors; on CUDA tensors it
-launches the kernel or raises.  ``elm2f_update.launches`` counts its kernel
-launches.  The kernel and the plain version run the same ops in the same
-order, so they agree bitwise.
+:func:`elm2f_update` and its packed entry point :func:`elm2f_update_packed`
+(``elm2f_update_packed``, the rings stored (ORDER, SUB, M/SUB)) take the
+plain PyTorch version (:func:`elm2f_update_plain`) only for CPU tensors; on
+CUDA tensors they launch the kernel or raise.  ``elm2f_update.launches`` and
+``elm2f_update_packed.launches`` count their kernel launches.  The kernel
+and the plain version run the same ops in the same order, so they agree
+bitwise.
 """
 
 from __future__ import annotations
@@ -82,17 +84,13 @@ def elm2f_update_plain(coef: np.ndarray, c_y: np.ndarray, ys: TwoFloat, dd: TwoF
     return eft.add(total, inc)
 
 
-def elm2f_update(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
-    """y_{n+1} pair from TwoFloat position/acceleration rings (kernel 2).
-
-    ys/dd: TwoFloat of (ORDER, ..., 3) f32, newest first, aligned.  Returns
-    a TwoFloat of shape (..., 3).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
-    """
+def _update(tab, h: float, ys: TwoFloat, dd: TwoFloat):
+    """(y_{n+1}, launched): the plain version on CPU tensors, kernel 2 on
+    CUDA tensors of any trailing shape, flattened to M elements."""
     coef, c_y = _tables(tab, h)
     dev = ys.hi.device
     if dev.type == "cpu":
-        return elm2f_update_plain(coef, c_y, ys, dd)
+        return elm2f_update_plain(coef, c_y, ys, dd), False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     shape = tuple(ys.hi.shape)
@@ -104,7 +102,7 @@ def elm2f_update(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
     out_hi = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     out_lo = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     if m == 0:
-        return TwoFloat(out_hi, out_lo)
+        return TwoFloat(out_hi, out_lo), False
     lib = _build.library()
     with on_device(dev) as stream:
         err = lib.eet_elm2f_update(
@@ -113,8 +111,40 @@ def elm2f_update(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
             out_hi.data_ptr(), out_lo.data_ptr(), m, stream,
         )
     _build.check(err, "elm2f_update")
-    elm2f_update.launches += 1
-    return TwoFloat(out_hi, out_lo)
+    return TwoFloat(out_hi, out_lo), True
+
+
+def elm2f_update(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
+    """y_{n+1} pair from TwoFloat position/acceleration rings (kernel 2).
+
+    ys/dd: TwoFloat of (ORDER, ..., 3) f32, newest first, aligned.  Returns
+    a TwoFloat of shape (..., 3).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel.
+    """
+    y, launched = _update(tab, h, ys, dd)
+    elm2f_update.launches += launched
+    return y
 
 
 elm2f_update.launches = 0
+
+
+def elm2f_update_packed(tab, h: float, ys: TwoFloat, dd: TwoFloat) -> TwoFloat:
+    """y_{n+1} pair from packed rings (kernel 2 through its packed entry
+    point, the JAX package's ``elm2f_update_packed``).
+
+    ys/dd: TwoFloat of (ORDER, SUB, M/SUB) f32, newest first, aligned: each
+    ring row's M elements stored as SUB rows.  Returns the packed (SUB,
+    M/SUB) y_{n+1}, bitwise equal to :func:`elm2f_update` on the unpacked
+    view.  There is no second CUDA kernel: the packing spreads a row over
+    the TPU's 8 sublanes, which has no counterpart in a flat CUDA grid, and
+    the contiguous (ORDER, SUB, M/SUB) ring is the (ORDER, M) ring's memory,
+    so kernel 2's launch serves both layouts.  ``elm2f_update_packed.launches``
+    counts this entry point's launches apart from :func:`elm2f_update`'s.
+    """
+    y, launched = _update(tab, h, ys, dd)
+    elm2f_update_packed.launches += launched
+    return y
+
+
+elm2f_update_packed.launches = 0

@@ -6,11 +6,13 @@ kernel ``_update_kernel``) in both of its modes, and of
 its header note says what bounds it on an H100 and how the design answers
 that.
 
-:func:`elm2q_update` takes the plain PyTorch version
-(:func:`elm2q_update_plain`) only for CPU tensors; on CUDA tensors it
-launches the kernel or raises.  ``elm2q_update.launches`` counts its kernel
-launches.  The kernel and the plain version run the same ops in the same
-order, so they agree bitwise.
+:func:`elm2q_update` and its packed entry point :func:`elm2q_update_packed`
+(``elm2q_update_packed``, the rings stored (ORDER, SUB, M/SUB)) take the
+plain PyTorch version (:func:`elm2q_update_plain`) only for CPU tensors; on
+CUDA tensors they launch the kernel or raise.  ``elm2q_update.launches`` and
+``elm2q_update_packed.launches`` count their kernel launches.  The kernel
+and the plain version run the same ops in the same order, so they agree
+bitwise.
 """
 
 from __future__ import annotations
@@ -96,18 +98,13 @@ def elm2q_update_plain(coef: np.ndarray, c_y: np.ndarray, nonzero, ys: tuple, dd
     return ex.add(total, inc)
 
 
-def elm2q_update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) -> tuple:
-    """y_{n+1} limbs from the aligned position/acceleration rings (kernel 4).
-
-    ys: 4-tuple of (ORDER, ..., 3) f32 limb tensors; dd: TwoFloat of the same
-    shape, dd[j] = f(ys[j]); newest first.  Returns a 4-tuple of (..., 3)
-    limbs.  ``precise``: the pair-precision beta sum.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
-    """
+def _update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool):
+    """(y_{n+1} limbs, launched): the plain version on CPU tensors, kernel 4
+    on CUDA tensors of any trailing shape, flattened to M elements."""
     coef, c_y, nonzero = _tables(tab, h, precise)
     dev = ys[0].device
     if dev.type == "cpu":
-        return elm2q_update_plain(coef, c_y, nonzero, ys, dd, precise)
+        return elm2q_update_plain(coef, c_y, nonzero, ys, dd, precise), False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     shape = tuple(ys[0].shape)
@@ -121,7 +118,7 @@ def elm2q_update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) 
         _check_input(name, x, shape, dev)
     out = tuple(torch.empty(shape[1:], dtype=torch.float32, device=dev) for _ in range(ex.K))
     if m == 0:
-        return out
+        return out, False
     mask = sum(1 << j for j in nonzero)
     lib = _build.library()
     with on_device(dev) as stream:
@@ -131,8 +128,41 @@ def elm2q_update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) 
             *(o.data_ptr() for o in out), m, stream,
         )
     _build.check(err, "elm2q_update")
-    elm2q_update.launches += 1
-    return out
+    return out, True
+
+
+def elm2q_update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) -> tuple:
+    """y_{n+1} limbs from the aligned position/acceleration rings (kernel 4).
+
+    ys: 4-tuple of (ORDER, ..., 3) f32 limb tensors; dd: TwoFloat of the same
+    shape, dd[j] = f(ys[j]); newest first.  Returns a 4-tuple of (..., 3)
+    limbs.  ``precise``: the pair-precision beta sum.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
+    """
+    y, launched = _update(tab, h, ys, dd, precise)
+    elm2q_update.launches += launched
+    return y
 
 
 elm2q_update.launches = 0
+
+
+def elm2q_update_packed(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool = False) -> tuple:
+    """y_{n+1} limbs from packed rings (kernel 4 through its packed entry
+    point, the JAX package's ``elm2q_update_packed``).
+
+    ys: 4-tuple of (ORDER, SUB, M/SUB) f32 limb rings; dd: TwoFloat of the
+    same packed shape; newest first.  Returns a 4-tuple of (SUB, M/SUB)
+    limbs, bitwise equal to :func:`elm2q_update` on the unpacked view.  As
+    for kernel 2's packed entry point (``cuda_elm2.elm2f_update_packed``),
+    the TPU's sublane packing has no counterpart in a flat CUDA grid and the
+    packed ring is the flat ring's memory, so kernel 4's launch serves both
+    layouts.  ``elm2q_update_packed.launches`` counts this entry point's
+    launches apart from :func:`elm2q_update`'s.
+    """
+    y, launched = _update(tab, h, ys, dd, precise)
+    elm2q_update_packed.launches += launched
+    return y
+
+
+elm2q_update_packed.launches = 0

@@ -95,6 +95,18 @@ def _tree_sum(x: TwoFloat) -> TwoFloat:
     return TwoFloat(hi[..., 0], lo[..., 0])
 
 
+def _dd_tree_sum(x: TwoFloat, dim: int) -> TwoFloat:
+    """pallas_nbody._dd_tree_sum: the halving tree a[k] = add_sloppy(a[k],
+    a[k + m]) along ``dim`` (a power-of-two length), kept as a size-1 dim."""
+    hi, lo = x.hi, x.lo
+    while hi.shape[dim] > 1:
+        m = hi.shape[dim] // 2
+        s = eft.add_sloppy(TwoFloat(hi.narrow(dim, 0, m), lo.narrow(dim, 0, m)),
+                           TwoFloat(hi.narrow(dim, m, m), lo.narrow(dim, m, m)))
+        hi, lo = s.hi, s.lo
+    return TwoFloat(hi, lo)
+
+
 def _df64_rows_plain(pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo, row0: int):
     """Kernel 1's chain on the (NL, N) pair grid of sources pos (3, N) and
     receivers rows (NL, 3) at global indices row0 .. row0 + NL - 1.  Every

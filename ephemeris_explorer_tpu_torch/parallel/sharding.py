@@ -13,7 +13,8 @@ Port of ``ephemeris_explorer_tpu.parallel.sharding``.  Its scaling axes:
 * E (ensemble): independent initial conditions, split over "data" with no
   collective in the loop (:func:`make_shardmap_ensemble_scan_f`); on one
   card, the whole ensemble runs through kernel 1's ensemble form
-  (:func:`make_fused_ensemble_scan_f`).
+  (:func:`make_fused_ensemble_scan_f`, and on the packed carry
+  :func:`make_fused_ensemble_scan_fp`).
 * time: sequential.  The JAX package's ``lax.scan`` programs become Python
   step loops with the time a host float, as in ``integrators.multistep``.
 
@@ -32,9 +33,8 @@ The entry points run on the card unless the caller asks for the CPU:
 device type decides.  The caller starts the default process group (NCCL on
 CUDA, gloo on the CPU) before :func:`make_mesh`.
 
-Not ported (ROADMAP.md, item 10): ``make_fused_ensemble_scan_fp`` (the
-sublane-packed carry, a TPU layout the port does not keep),
-``make_sharded_fleet_propagator`` (spacecraft, item 6) and the vmapped GSPMD
+Not ported (ROADMAP.md, item 10): ``make_sharded_fleet_propagator``
+(spacecraft, item 6) and the vmapped GSPMD
 layout (``carry_sharding``, ``make_sharded_ensemble_step``/``_scan``,
 ``init_ensemble_carry``), whose collectives XLA inserts.
 """
@@ -46,8 +46,9 @@ import torch.distributed as dist
 
 from .. import _device
 from ..integrators.multistep import (
-    ELM2Carry, ELM2CarryF, ELM2CarryQF, elm2_f_from, elm2_init, elm2_qf_from_q, elm2_step,
-    elm2_step_f, elm2_step_qf, elm2_velocity, elm2_velocity_f, elm2_velocity_qf,
+    ELM2Carry, ELM2CarryF, ELM2CarryFP, ELM2CarryQF, elm2_f_from, elm2_fp_from, elm2_init,
+    elm2_qf_from_q, elm2_step, elm2_step_f, elm2_step_fp, elm2_step_qf, elm2_velocity,
+    elm2_velocity_f, elm2_velocity_fp, elm2_velocity_qf,
 )
 from ..ops import nbody
 from ..ops.cuda_limbs import pairwise_accel_limbs_pair_rows
@@ -261,11 +262,7 @@ def make_fused_ensemble_scan_f(tab, mus, h, n_steps: int, device=None):
     an :func:`init_fused_ensemble_carry` carry.  Member e equals the
     single-system fused step (``elm2_step_f`` with kernel 1's square form)
     on member e bitwise.  ``device=None`` is the card."""
-    mu_hi, mu_lo = _split_mu(mus, _device.resolve(device))
-
-    def accel_pair(t, y: TwoFloat) -> TwoFloat:  # y: (E, N, 3)
-        return TwoFloat(*pairwise_accel_df64_ensemble(
-            y.hi.transpose(1, 2).contiguous(), y.lo.transpose(1, 2).contiguous(), mu_hi, mu_lo))
+    accel_pair = _ensemble_accel_pair(mus, _device.resolve(device))
 
     def run(carry: ELM2CarryF) -> ELM2CarryF:
         for _ in range(n_steps):
@@ -273,6 +270,36 @@ def make_fused_ensemble_scan_f(tab, mus, h, n_steps: int, device=None):
         return carry._replace(dy=elm2_velocity_f(tab, carry, h))
 
     return run, elm2_f_from
+
+
+def _ensemble_accel_pair(mus, device: torch.device):
+    """The pair force of an (E, N, 3) TwoFloat batch through kernel 1's
+    ensemble form, all members in one launch."""
+    mu_hi, mu_lo = _split_mu(mus, device)
+
+    def accel_pair(t, y: TwoFloat) -> TwoFloat:
+        return TwoFloat(*pairwise_accel_df64_ensemble(
+            y.hi.transpose(1, 2).contiguous(), y.lo.transpose(1, 2).contiguous(), mu_hi, mu_lo))
+
+    return accel_pair
+
+
+def make_fused_ensemble_scan_fp(tab, mus, h, n_steps: int, shape: tuple, device=None):
+    """The pair-native ensemble scan on the packed carry (ref :544-582):
+    :func:`make_fused_ensemble_scan_f` with the rings stored (ORDER, SUB,
+    E*N*3/SUB) across steps and kernel 2 through its packed entry point.
+    ``shape`` is the logical (E, N, 3).  Returns (run, to_fp), where to_fp
+    converts an :func:`init_fused_ensemble_carry` carry; the rings equal the
+    unpacked scan's bitwise.  ``device=None`` is the card."""
+    accel_pair = _ensemble_accel_pair(mus, _device.resolve(device))
+    shape = tuple(shape)
+
+    def run(carry: ELM2CarryFP) -> ELM2CarryFP:
+        for _ in range(n_steps):
+            carry = elm2_step_fp(tab, accel_pair, h, carry, shape)
+        return carry._replace(dy=elm2_velocity_fp(tab, carry, h, shape))
+
+    return run, lambda c: elm2_fp_from(elm2_f_from(c))
 
 
 def make_shardmap_ensemble_scan_f(mesh, tab, mus, h, n_steps: int):

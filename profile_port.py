@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's step and force loops, on one NVIDIA GPU.
 
-    python3 profile_port.py [--loops A,B,C,D] [--out FILE]
+    python3 profile_port.py [--loops A,B,C,D,F,G,H] [--out FILE]
 
 Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 
@@ -16,9 +16,15 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   the strong set built once), as ``chip_smoke.py`` phase 16 runs them;
 * path D: one 50-step scan of ``make_fused_ensemble_scan_f`` at E = 16 x
   N = 4096 (kernel 1's ensemble form then kernel 2 each step), as
-  ``chip_smoke.py`` phase 20 runs it (``bench.py``'s ensemble16x4096).
+  ``chip_smoke.py`` phase 20 runs it (``bench.py``'s ensemble16x4096);
+* path F: one ``CHUNK_STEPS`` chunk of full_solar_system through kernel 11
+  (``elm2_gen_scan``, one launch), as ``chip_smoke.py`` phase 25 runs it;
+* path G: 400 evaluations of kernel 10's f64 drop-in at N = 4096, as
+  ``chip_smoke.py`` phase 26 runs them;
+* path H: one 50-step scan of ``make_fused_ensemble_scan_fp`` at E = 16 x
+  N = 4096 (kernel 1's ensemble form then kernel 2'), as phase 27 runs it.
 
-``--loops`` picks the paths (default all four).  For each: wall µs per step (synchronised host timer around the profiled
+``--loops`` picks the paths (default all seven).  For each: wall µs per step (synchronised host timer around the profiled
 loop), device µs per step (the sum of the CUDA kernels' self time), the
 idle share 1 - device / wall, and the kernels by device time with their
 launches per step.  Each loop is also timed without the profiler.  Prints
@@ -83,7 +89,7 @@ def profile_loop(torch, name: str, body, steps: int, sync) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--loops", default="A,B,C,D")
+    ap.add_argument("--loops", default="A,B,C,D,F,G,H")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     args = ap.parse_args(argv)
     paths = set(args.loops.split(","))
@@ -99,7 +105,8 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.integrators import get
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.io import scene
-    from ephemeris_explorer_tpu_torch.ops import cuda_limbs, cuda_nbody
+    from ephemeris_explorer_tpu_torch.ops import cuda_gen, cuda_limbs, cuda_nbody, cuda_sym, nbody
+    from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
     from ephemeris_explorer_tpu_torch.parallel import sharding as sh
 
     smi = subprocess.run(
@@ -166,6 +173,35 @@ def main(argv=None) -> int:
         f0 = to_f(carry0)
         results.append(profile_loop(torch, "path_D_ensemble16x4096_step", lambda: run(f0),
                                     ENS_SCAN_STEPS, sync))
+    if "F" in paths:
+        fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
+        fmu = torch.as_tensor(fss.state.mus(), dtype=f64, device=dev)
+        c0 = ms.elm2_init(tab, lambda t, y: nbody.pairwise_accel(y, fmu), 0.0,
+                          torch.as_tensor(fss.state.positions(), dtype=f64, device=dev),
+                          torch.as_tensor(fss.state.velocities(), dtype=f64, device=dev), H)
+        mu_pair = TwoFloat(*cuda_nbody.split_f64(fmu.reshape(1, -1)))
+        results.append(profile_loop(
+            torch, "path_F_full_solar_system_chunk",
+            lambda: cuda_gen.elm2_gen_scan(tab, H, c0, mu_pair, eph.CHUNK_STEPS),
+            eph.CHUNK_STEPS, sync))
+    if "G" in paths:
+        p64 = torch.as_tensor(pos, dtype=f64, device=dev)
+
+        def sym_loop():
+            p = p64
+            for _ in range(400):
+                p = p + cuda_sym.pairwise_accel_sym(p, mh, ml) * 1e-30
+
+        results.append(profile_loop(torch, "path_G_kernel10_eval", sym_loop, 400, sync))
+    if "H" in paths:
+        ens_pos = np.stack([_cluster(N_BODIES, seed=i)[0] for i in range(ENSEMBLE)])
+        ens_vel = np.stack([_cluster(N_BODIES, seed=i)[1] for i in range(ENSEMBLE)])
+        carry0 = sh.init_fused_ensemble_carry(tab, mu, 0.0, ens_pos, ens_vel, H, device=dev)
+        run, to_fp = sh.make_fused_ensemble_scan_fp(tab, mu, H, ENS_SCAN_STEPS,
+                                                    (ENSEMBLE, N_BODIES, 3), device=dev)
+        fp0 = to_fp(carry0)
+        results.append(profile_loop(torch, "path_H_packed_ensemble16x4096_step",
+                                    lambda: run(fp0), ENS_SCAN_STEPS, sync))
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))
     out = Path(args.out)

@@ -1,4 +1,4 @@
-"""Kernels 1-9 against their plain PyTorch versions on an NVIDIA GPU.
+"""Kernels 1-11 against their plain PyTorch versions on an NVIDIA GPU.
 
 Every test here needs the card: it is marked ``cuda`` and skips (inside a
 fixture) when ``torch.cuda.is_available()`` is false.  The file imports no
@@ -16,8 +16,8 @@ import torch
 from ephemeris_explorer_tpu_torch import ephemeris as eph
 from ephemeris_explorer_tpu_torch.integrators import get
 from ephemeris_explorer_tpu_torch.io import scene
-from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_f32, cuda_limbs, cuda_mixed
-from ephemeris_explorer_tpu_torch.ops import cuda_nbody, cuda_split, split
+from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_f32, cuda_gen, cuda_limbs
+from ephemeris_explorer_tpu_torch.ops import cuda_mixed, cuda_nbody, cuda_split, cuda_sym, split
 from ephemeris_explorer_tpu_torch.ops import expansion as ex
 from ephemeris_explorer_tpu_torch.ops.eft import TwoFloat
 
@@ -523,3 +523,83 @@ def test_one_rank_nccl_mesh_on_card(cuda_device, tmp_path):
         assert torch.equal(out.ys.hi, ref.ys.hi) and torch.equal(out.ys.lo, ref.ys.lo)
     finally:
         dist.destroy_process_group()
+
+
+# -- kernels 2' and 4' (packed entry points), 10 (symmetric) and 11 (generation) --
+
+
+@pytest.mark.parametrize("n", [32, 4096])
+def test_packed_updates_on_card(cuda_device, n):
+    """Kernels 2' and 4' (both modes) on packed (12, 8, 3N/8) rings: bitwise
+    to their plain versions and to the unpacked entry points; each counts
+    its own launch."""
+    rng = np.random.default_rng(24)
+    y = torch.tensor(rng.normal(size=(12, 8, 3 * n // 8)) * 1e8, device=cuda_device)
+    a = torch.tensor(rng.normal(size=(12, 8, 3 * n // 8)) * 1e-6, device=cuda_device)
+    ys, dd = TwoFloat(*cuda_nbody.split_f64(y)), TwoFloat(*cuda_nbody.split_f64(a))
+    tab = get(QT12)
+    b2, b2u = cuda_elm2.elm2f_update_packed.launches, cuda_elm2.elm2f_update.launches
+    k = cuda_elm2.elm2f_update_packed(tab, 600.0, ys, dd)
+    assert cuda_elm2.elm2f_update_packed.launches == b2 + 1
+    assert cuda_elm2.elm2f_update.launches == b2u
+    p = cuda_elm2.elm2f_update_plain(*cuda_elm2._tables(tab, 600.0), ys, dd)
+    u = cuda_elm2.elm2f_update(tab, 600.0, TwoFloat(*(x.reshape(12, -1) for x in ys)),
+                               TwoFloat(*(x.reshape(12, -1) for x in dd)))
+    assert torch.equal(k.hi, p.hi) and torch.equal(k.lo, p.lo)
+    assert torch.equal(k.hi, u.hi.reshape(8, -1)) and torch.equal(k.lo, u.lo.reshape(8, -1))
+    limbs = tuple(l.reshape(12, 8, -1) for l in ex.from_f64_host(y.cpu().numpy(), cuda_device))
+    for precise in (False, True):
+        b4 = cuda_elm2q.elm2q_update_packed.launches
+        k4 = cuda_elm2q.elm2q_update_packed(tab, 600.0, limbs, dd, precise=precise)
+        assert cuda_elm2q.elm2q_update_packed.launches == b4 + 1
+        p4 = cuda_elm2q.elm2q_update_plain(*cuda_elm2q._tables(tab, 600.0, precise), limbs, dd,
+                                           precise)
+        assert all(torch.equal(x, z) for x, z in zip(k4, p4))
+
+
+@pytest.mark.parametrize("n", [32, 96, 1024, 4096])
+def test_kernel10_matches_plain_on_card(cuda_device, n):
+    """Kernel 10 against its plain version bitwise (same ops, same order), and
+    against kernel 1 within 2^-44 of max |a| (the reference's bar)."""
+    pos, mu = _cloud(n, 25)
+    ph, pl = cuda_nbody.split_f64(torch.tensor(pos, device=cuda_device), transpose=True)
+    mh, ml = cuda_nbody.split_f64(torch.tensor(mu, device=cuda_device).reshape(1, -1))
+    before = cuda_sym.pairwise_accel_df64_sym.launches
+    kh, kl = cuda_sym.pairwise_accel_df64_sym(ph, pl, mh, ml)
+    assert cuda_sym.pairwise_accel_df64_sym.launches == before + 1
+    rh, rl = cuda_sym.pairwise_accel_df64_sym_plain(ph, pl, mh, ml)
+    assert torch.equal(kh, rh) and torch.equal(kl, rl)
+    k1 = cuda_nbody.combine_f64(*cuda_nbody.pairwise_accel_df64(ph, pl, mh, ml))
+    assert (cuda_nbody.combine_f64(kh, kl) - k1).abs().max() <= 2.0**-44 * k1.abs().max()
+
+
+def test_kernel10_rejects_non_multiple_n(cuda_device):
+    pos, mu = _cloud(48, 26)
+    ph, pl = cuda_nbody.split_f64(torch.tensor(pos, device=cuda_device), transpose=True)
+    mh, ml = cuda_nbody.split_f64(torch.tensor(mu, device=cuda_device).reshape(1, -1))
+    before = cuda_sym.pairwise_accel_df64_sym.launches
+    with pytest.raises(ValueError, match="multiple of its tile"):
+        cuda_sym.pairwise_accel_df64_sym(ph, pl, mh, ml)
+    assert cuda_sym.pairwise_accel_df64_sym.launches == before
+
+
+@pytest.mark.parametrize("n", [3, 10, 32, 64, 200])
+def test_kernel11_matches_plain_on_card(cuda_device, n):
+    """Kernel 11 over 16 steps against its plain version: bitwise
+    (emissions and rings), one launch; n = 3, 10, 200 exercise the ghost
+    padding, 64 and 200 the in-lane levels of the tree."""
+    from ephemeris_explorer_tpu_torch.integrators import multistep as ms
+    from ephemeris_explorer_tpu_torch.ops import nbody
+
+    pos, mu = _cloud(n, 27)
+    tm = torch.tensor(mu, device=cuda_device)
+    c0 = ms.elm2_init(get(QT12), lambda t, y: nbody.pairwise_accel(y, tm), 0.0,
+                      torch.tensor(pos, device=cuda_device),
+                      torch.zeros((n, 3), dtype=torch.float64, device=cuda_device), 600.0)
+    mu_pair = TwoFloat(*cuda_nbody.split_f64(tm.reshape(1, -1)))
+    before = cuda_gen.elm2_gen_scan.launches
+    ys, c = cuda_gen.elm2_gen_scan(get(QT12), 600.0, c0, mu_pair, 16)
+    assert cuda_gen.elm2_gen_scan.launches == before + 1
+    ysp, cp = cuda_gen.elm2_gen_scan_plain(get(QT12), 600.0, c0, mu_pair, 16)
+    assert torch.equal(ys, ysp) and torch.equal(c.ys, cp.ys) and torch.equal(c.ddys, cp.ddys)
+    assert torch.equal(ys[-1], c.ys[0])

@@ -82,6 +82,8 @@ def test_import_leaves_jax_out():
         "import ephemeris_explorer_tpu_torch\n"
         "import ephemeris_explorer_tpu_torch.ephemeris, ephemeris_explorer_tpu_torch.interop\n"
         "import ephemeris_explorer_tpu_torch.ops.cuda_nbody, ephemeris_explorer_tpu_torch.ops.cuda_elm2\n"
+        "import ephemeris_explorer_tpu_torch.ops.cuda_sym, ephemeris_explorer_tpu_torch.ops.cuda_gen\n"
+        "import ephemeris_explorer_tpu_torch.parallel.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m.split('.')[0] == 'ephemeris_explorer_tpu']\n"
         "assert not bad, bad\n"
