@@ -21,7 +21,8 @@ them:
   through kernel 3 (path A, phase 11);
 * the force-mode ladder: kernels 5 (f32), 6 (mixed), 7 (masked f32) and 8
   (two-float strong-pair correction) against their plain versions and the
-  JAX package's bars for the modes (phases 12-15), and the ladder at
+  JAX package's bars for the modes (phases 12-15; kernels 6 and 7 also
+  twice bitwise, with their share of their bound), and the ladder at
   N = 4096 as ``bench.py:438-604`` drives it, 400 force evaluations per
   mode, with each mode's error against native f64 (path C, phase 16);
 * ensembles and the row decomposition: kernel 1's ensemble and rows forms,
@@ -426,9 +427,13 @@ def main(argv=None) -> int:
     # -- phase 2: build -------------------------------------------------------
     if 2 in phases:
         t0 = time.perf_counter()
-        _build.library()
+        lib = _build.library()
         regs = [ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
                 if "registers" in ln]
+        check((lib.eet_f32_pair_tile(), lib.eet_f32_pair_group())
+              == (cuda_nbody.F32_PAIR_TILE, cuda_nbody.F32_PAIR_GROUP),
+              "kernels 6 and 7 were built for another tile or receiver group than "
+              "_f32_pair_geometry partitions")
         print(json.dumps({"phase": 2, "build_s": round(time.perf_counter() - t0, 3),
                           "ptxas": regs, "card": smi}))
 
@@ -551,11 +556,15 @@ def main(argv=None) -> int:
         cp = cp._replace(dy=ms.elm2_velocity(tab, cp, H))
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
+        reset_counts()
         t0 = time.perf_counter()
         cf, yf_early = run(fused_step, ms.elm2_f_from(carry0), FLAGSHIP_STEPS)
         cf = cf._replace(dy=ms.elm2_velocity_f(tab, cf, H))
         torch.cuda.synchronize()
         t_fused = time.perf_counter() - t0
+        launches = read_counts()
+        check(launches["accel_df64"] >= FLAGSHIP_STEPS and launches["elm2f_update"] >= FLAGSHIP_STEPS,
+              f"the F step did not run through kernels 1 and 2: {launches}")
         # the chaos floor: native f64 from the carry rounded to two-float
         cq, _ = run(plain_step, ms.elm2_f_to(ms.elm2_f_from(carry0)), FLAGSHIP_STEPS)
 
@@ -577,8 +586,13 @@ def main(argv=None) -> int:
             f"f64_chaos_floor_after_{FLAGSHIP_STEPS}": d_floor.max().item() / ymax,
             "median_divergence_vs_floor": shadow, "shadow_bound": SHADOW_FACTOR,
             "fused_body_steps_per_s": N_BODIES * FLAGSHIP_STEPS / t_fused,
-            "plain_f64_body_steps_per_s": N_BODIES * FLAGSHIP_STEPS / t_plain, "card": smi,
+            "plain_f64_body_steps_per_s": N_BODIES * FLAGSHIP_STEPS / t_plain,
+            "launches": {k: v for k, v in launches.items() if v}, "card": smi,
         }))
+        # the F step is kernels 1 and 2's live path (generation's fused
+        # branch, phase 6, runs only with its gate patched on)
+        for k in ("accel_df64", "elm2f_update"):
+            record.setdefault(k, {})["launches"] = launches[k]
 
     # -- phase 6: generation at N=4096 through both kernels -------------------
     if 6 in phases:
@@ -643,8 +657,6 @@ def main(argv=None) -> int:
             "fused_body_steps_per_s": N_BODIES * GEN_STEPS / t_fused,
             "plain_f64_body_steps_per_s": N_BODIES * GEN_STEPS / t_plain, "card": smi,
         }))
-        for k in ("accel_df64", "elm2f_update"):
-            record.setdefault(k, {})["launches"] = launches[k]
 
     # -- phase 7: full_solar_system, one year, through kernel 11-f64 ------------
     fss_year = {}  # phase 7's eager native-f64 year, which path F compares with
@@ -1089,6 +1101,15 @@ def main(argv=None) -> int:
             record[kernel_name] = kernel_record(case["max_abs_err"], case["kernel_us"] / 1e3,
                                                 case["plain_us"] / 1e3, case["bound"])
 
+    def deterministic(name, kernel, case):
+        """Two more calls of a redesigned kernel equal each other bitwise;
+        on cluster4096 also its device time's share of its bound."""
+        a, b = kernel(), kernel()
+        check(torch.equal(a, b), f"{name}: two calls differ")
+        case["two_calls_bitwise"] = True
+        if "bound" in case:
+            case["bound_share"] = case["bound"]["bound_ms"] * 1e3 / case["kernel_device_us"]
+
     # -- phase 12: kernel 5 against its plain version --------------------------
     if 12 in phases:
         t_phase = time.perf_counter()
@@ -1122,6 +1143,7 @@ def main(argv=None) -> int:
             out.append(against_plain(name, lambda: cuda_mixed.pairwise_accel_mixed(ph, pl, m32),
                                      lambda: cuda_mixed.pairwise_accel_mixed_plain(ph, pl, m32),
                                      F32_VS_PLAIN, [ph, pl, m32]))
+            deterministic(name, lambda: cuda_mixed.pairwise_accel_mixed(ph, pl, m32), out[-1])
             keep("accel_mixed", out[-1])
         # test_mixed_mode_error_envelope's bars, per body against kernel 1
         p, m = close_pair()
@@ -1158,6 +1180,8 @@ def main(argv=None) -> int:
                     lambda: cuda_f32.pairwise_accel_f32_masked_plain(p32, m32, mk, diag_in_mask=diag),
                     F32_VS_PLAIN, [p32, m32, mk])
                 case["diag_in_mask"] = diag
+                deterministic(name, lambda: cuda_f32.pairwise_accel_f32_masked(p32, m32, mk, diag),
+                              case)
                 out.append(case)
             keep("accel_f32_masked", case)
             # the rows form against the square form's row slices, bitwise

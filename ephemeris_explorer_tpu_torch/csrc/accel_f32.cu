@@ -13,87 +13,70 @@
 // difference, r^2 summed left to right, the rsqrt seed and one Newton step,
 // w = mu (u u u).  Kernel 5 skips the self pair; kernel 7 skips every pair
 // whose int8 mask entry is nonzero and, unless the mask is promised to carry
-// the self diagonal (`diag_in_mask`), the self pair as well.  One template,
-// `accel_f32_partial<masked, diag_in_mask>`, holds both.
+// the self diagonal (`diag_in_mask`), the self pair as well.
 //
-// What bounds it on an H100: arithmetic and the special-function unit.  The
-// chain is ~25 f32 operations and one rsqrt per pair, so N = 4096 is 16.8M
-// pairs, ~0.4 GFLOP and 16.8M rsqrts per call: a few microseconds of the
-// card, comparable to a launch.  Kernel 7 also reads the (NL, N) int8 mask,
-// 16.8 MB at N = 4096, once.
+// What bounds them on an H100: arithmetic, ~23 f32 operations and one rsqrt
+// per pair (16.8M pairs at N = 4096), each add and multiply issued alone.
+// Kernel 7 also reads the (NL, N) int8 mask once, 16.8 MB at N = 4096 (5.0
+// us of HBM, under the 11.5 us of arithmetic), and every pair pays for its
+// mask byte: a load, a test and a select.  Kernel 7's loop issues 30
+// instructions a pair: the 22 adds and multiplies, the rsqrt and the four
+// instructions of its guard for subnormal inputs, the mask test and select,
+// and a share of the loads and the loop.
 //
-// Design: kernel 1's (accel_df64.cu).  One thread per receiver, 128
-// receivers per block; each tile of 128 sources is staged in shared memory,
-// read as the (N, 3) rows it arrives in (one contiguous run of 384 floats),
-// and every thread reads the same source at once (a broadcast).  The source
-// range is split across gridDim.y into per-split partial sums (f32 adds in
-// source order) that a second pass adds in split order.  The number of
-// splits follows from N (the sources) alone, so the rows form (receivers at
+// Kernel 5: one thread per receiver, 128 receivers per block; each tile of
+// 128 sources is staged in shared memory, read as the (N, 3) rows it arrives
+// in (one contiguous run of 384 floats), and every thread reads the same
+// source at once (a broadcast).  The source range is split across gridDim.y
+// into per-split partial sums (f32 adds in source order) that a second pass
+// adds in split order.
+//
+// Kernel 7 runs forcef32.cuh's warp-tiled loop.  Each lane holds kRecv = 4
+// receivers, so one 16-byte {x, y, z, mu} read from shared memory feeds four
+// independent chains, written step by step across the four.  Each warp
+// walks its own split of 32-source tiles; with a tile's sources it stages
+// its 128 receivers' 32 mask bytes each, loaded from device memory as
+// 16-byte runs into registers while the tile before is computed, and stored
+// word-major (word q of all 128 rows side by side), so each lane reads a
+// 4-byte word, four sources' mask bytes, of each of its rows without a bank
+// conflict.  The splits take the tiles in a stride, so the warps that run
+// side by side read each mask row's neighbouring 32-byte runs.  A masked
+// pair is taken by a select, as in the plain version (w := 0: it adds +-0,
+// the sum of a skipped pair), so the loop has no per-pair branch; the self
+// compare (without `diag_in_mask`) and the ragged last tile's padding are
+// selected only in the tiles that need them, a branch uniform across the
+// warp.  The block's warps and a grid row's blocks are the source splits of
+// one receiver group; the last block of a group to finish adds their
+// partial sums in split order (sum_splits): one launch, deterministic.  The
+// splits follow from N (the sources) alone, so the rows form (receivers at
 // a global offset) sums every receiver in the same order as the square form
 // and equals its row slices bitwise.
 //
-// The mask is row-major (NL, N): thread i reading mask[i, j] directly would
-// stride every warp load by N bytes.  Each (128 receivers x 128 sources)
-// block of it is staged through shared memory instead, by coalesced loads
-// (16 bytes a thread where N and the pointer allow, bytes otherwise), into
-// rows padded to 132 bytes so that a warp's 32 receivers reading one source
-// column fall in 32 different banks.
-//
-// The f32 sums run in another order than the TPU kernel's per-tile sums, so
-// the result is held to a tolerance, not bitwise; CUDA's rsqrtf seed may also
-// differ from other platforms' by an ulp before the Newton step.
+// The f32 sums run in another order than the TPU kernels' per-tile sums, so
+// the results are held to a tolerance, not bitwise; CUDA's rsqrtf seed may
+// also differ from other platforms' by an ulp before the Newton step.
 
 #include <cstdint>
 
 #include "forcef32.cuh"
 
+namespace eet {
 namespace {
 
-constexpr int kTile = eet::kF32Tile;
-constexpr int kMaskStride = kTile + 4;  // bytes per staged mask row (33 words)
+// ---- kernel 5 ----------------------------------------------------------------
 
-// Stage mask[row0 : row0 + rows, j0 : j0 + cnt] into s_mask (row stride
-// kMaskStride), coalesced.
-__device__ __forceinline__ void stage_mask(const int8_t* __restrict__ mask, unsigned char* s_mask,
-                                           int n, int row0, int rows, int j0, int cnt) {
-  const bool vec = cnt == kTile && n % 16 == 0 &&
-                   (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
-  if (vec) {
-    for (int v = threadIdx.x; v < rows * (kTile / 16); v += kTile) {
-      const int r = v / (kTile / 16), q = v % (kTile / 16);
-      const uint4 x = *reinterpret_cast<const uint4*>(
-          mask + static_cast<size_t>(row0 + r) * n + j0 + q * 16);
-      unsigned* dst = reinterpret_cast<unsigned*>(s_mask + r * kMaskStride + q * 16);
-      dst[0] = x.x;
-      dst[1] = x.y;
-      dst[2] = x.z;
-      dst[3] = x.w;
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * cnt; e += kTile) {
-      const int r = e / cnt, c = e - r * cnt;
-      s_mask[r * kMaskStride + c] =
-          static_cast<unsigned char>(mask[static_cast<size_t>(row0 + r) * n + j0 + c]);
-    }
-  }
-}
+constexpr int kTile = kF32Tile;
 
-template <bool kMasked, bool kDiagInMask>
 __global__ void __launch_bounds__(kTile)
 accel_f32_partial(const float* __restrict__ pos, const float* __restrict__ mu,
-                  const float* __restrict__ rows, const int8_t* __restrict__ mask,
-                  float* __restrict__ part, int n, int nl, int tiles_per_split) {
-  using namespace eet;
+                  float* __restrict__ part, int n, int tiles_per_split) {
   __shared__ float s_p[3 * kTile];
   __shared__ float s_mu[kTile];
-  __shared__ __align__(16) unsigned char s_mask[kMasked ? kTile * kMaskStride : 4];
 
-  const int row0 = blockIdx.x * kTile;
-  const int rows_here = min(kTile, nl - row0);
-  const int i = row0 + threadIdx.x;  // receiver; its global index in the square form
-  const bool active = i < nl;
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool active = i < n;
   const int ii = active ? i : 0;
-  const float pi[3] = {rows[ii * 3], rows[ii * 3 + 1], rows[ii * 3 + 2]};
+  const float pi[3] = {pos[ii * 3], pos[ii * 3 + 1], pos[ii * 3 + 2]};
   float acc[3] = {0.0f, 0.0f, 0.0f};
 
   const int tile0 = blockIdx.y * tiles_per_split;
@@ -103,14 +86,10 @@ accel_f32_partial(const float* __restrict__ pos, const float* __restrict__ mu,
     const int cnt = min(kTile, n - j0);
     for (int e = threadIdx.x; e < 3 * cnt; e += kTile) s_p[e] = pos[static_cast<size_t>(j0) * 3 + e];
     if (threadIdx.x < cnt) s_mu[threadIdx.x] = mu[j0 + threadIdx.x];
-    if (kMasked) stage_mask(mask, s_mask, n, row0, rows_here, j0, cnt);
     __syncthreads();
     if (active) {
       for (int k = 0; k < cnt; ++k) {
-        bool skip = false;
-        if (kMasked) skip = s_mask[threadIdx.x * kMaskStride + k] != 0;
-        if (!kDiagInMask) skip = skip || j0 + k == i;
-        if (skip) continue;  // the reference's w = 0 adds +-0: the same sum
+        if (j0 + k == i) continue;  // the self pair
         const float d[3] = {fsub(s_p[3 * k], pi[0]), fsub(s_p[3 * k + 1], pi[1]),
                             fsub(s_p[3 * k + 2], pi[2])};
         const float w = f32_weight(f32_r2(d), s_mu[k]);
@@ -120,49 +99,215 @@ accel_f32_partial(const float* __restrict__ pos, const float* __restrict__ mu,
     __syncthreads();
   }
   if (active) {
-    const size_t base = (static_cast<size_t>(blockIdx.y) * nl + i) * 3;
+    const size_t base = (static_cast<size_t>(blockIdx.y) * n + i) * 3;
     for (int c = 0; c < 3; ++c) part[base + c] = acc[c];
   }
 }
 
-template <bool kMasked, bool kDiagInMask>
-int launch(const float* pos, const float* mu, const float* rows, const int8_t* mask, float* part,
-           float* out, int n, int nl, int splits, cudaStream_t stream) {
-  const int n_tiles = (n + kTile - 1) / kTile;
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  dim3 grid((nl + kTile - 1) / kTile, splits);
-  accel_f32_partial<kMasked, kDiagInMask>
-      <<<grid, kTile, 0, stream>>>(pos, mu, rows, mask, part, n, nl, tiles_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return eet::launch_f32_reduce(part, out, 3 * nl, splits, stream);
+// ---- kernel 7 ----------------------------------------------------------------
+
+constexpr int kWords = kSrcTile / 4;  // mask words (4 sources each) a row of a tile
+constexpr int kRuns = kSrcTile / 16;  // 16-byte mask runs a row of a tile
+
+// Shared memory of one warp: its tile's sources, and its 128 rows' mask
+// words of the tile, word-major; after the loop the mask words hold the
+// warp's partial sums.
+struct MaskedWarpSmem {
+  float4 src[kSrcTile];
+  union {
+    uint32_t mask[kWords][kGroup];
+    float part[3 * kGroup];
+  };
+};
+
+// 16 mask bytes of row `row` (< nl) from column `col`: one 16-byte load when
+// the run lies inside the row and `vec` (rows and pointer 16-byte aligned),
+// else byte by byte, zero past column n.
+__device__ __forceinline__ uint4 mask_run(const int8_t* __restrict__ mask, int n, int row, int col,
+                                          bool vec) {
+  const int8_t* p = mask + static_cast<size_t>(row) * n + col;
+  if (vec && col + 16 <= n) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    if (col + b < n) w[b / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(p[b])) << (8 * (b % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One source s against the lane's receivers p[r], with the mask words mw[r]
+// of its four-source group at byte `byte`: acc[r] += w d, w := 0 where the
+// byte is nonzero, and in checked tiles where k is the receiver's skip_k (its
+// self pair, or -1) or past cnt (the padding).  Each step is taken for all
+// receivers before the next, so the kRecv chains interleave.
+template <bool kChecked>
+__device__ __forceinline__ void masked_pairs(float4 s, const float p[kRecv][3],
+                                             float acc[kRecv][3], const uint32_t mw[kRecv],
+                                             int byte, int k, const int skip_k[kRecv], int cnt) {
+  float d[kRecv][3], r2[kRecv], w[kRecv];
+#pragma unroll
+  for (int r = 0; r < kRecv; ++r) {
+    d[r][0] = fsub(s.x, p[r][0]);
+    d[r][1] = fsub(s.y, p[r][1]);
+    d[r][2] = fsub(s.z, p[r][2]);
+  }
+  f32_r2s<kRecv>(d, r2);
+  f32_weights<kRecv>(r2, s.w, w);
+#pragma unroll
+  for (int r = 0; r < kRecv; ++r) {
+    bool skip = (mw[r] & (0xffu << (8 * byte))) != 0u;
+    if (kChecked) skip = skip || k == skip_k[r] || k >= cnt;
+    w[r] = skip ? 0.0f : w[r];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int r = 0; r < kRecv; ++r) acc[r][c] = fadd(acc[r][c], fmul(w[r], d[r][c]));
+  }
+}
+
+// The lane's receivers against a staged tile: word q of each receiver's mask
+// row, then its four sources.
+template <bool kChecked>
+__device__ __forceinline__ void masked_tile(const MaskedWarpSmem& sm, int lane,
+                                            const float p[kRecv][3], float acc[kRecv][3],
+                                            const int skip_k[kRecv], int cnt) {
+#pragma unroll 1
+  for (int q = 0; q < kWords; ++q) {
+    uint32_t mw[kRecv];
+#pragma unroll
+    for (int r = 0; r < kRecv; ++r) mw[r] = sm.mask[q][r * kLanes + lane];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      masked_pairs<kChecked>(sm.src[4 * q + b], p, acc, mw, b, 4 * q + b, skip_k, cnt);
+    }
+  }
+}
+
+template <bool kDiagInMask>
+__global__ void __launch_bounds__(kMaxWarps * kLanes, 2)
+accel_f32_masked_kernel(const float* __restrict__ pos, const float* __restrict__ mu,
+                        const float* __restrict__ rows, const int8_t* __restrict__ mask,
+                        float* __restrict__ part, unsigned* __restrict__ counters,
+                        float* __restrict__ out, int n, int nl) {
+  MaskedWarpSmem* smem = reinterpret_cast<MaskedWarpSmem*>(pair_smem);
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int warps = blockDim.x / kLanes;
+  const int g0 = blockIdx.y * kGroup;
+  const int split = blockIdx.x * warps + warp, splits = warps * gridDim.x;
+  const int tiles = source_tiles(n);
+  const bool vec = n % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  MaskedWarpSmem& sm = smem[warp];
+
+  // the next tile in registers: a source a lane, and the tile's mask bytes
+  // of rows g0 + 32 r + lane, kRuns runs of 16
+  float4 next_src;
+  uint4 next_mask[kRecv][kRuns];
+  auto fetch = [&](int t) {
+    const int j0 = t * kSrcTile;
+    const int j = j0 + lane;
+    next_src = j < n ? make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], mu[j])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < kRecv; ++r) {
+      const int row = g0 + r * kLanes + lane;
+#pragma unroll
+      for (int h = 0; h < kRuns; ++h) {
+        next_mask[r][h] = row < nl ? mask_run(mask, n, row, j0 + 16 * h, vec)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  if (split < tiles) fetch(split);
+
+  float p[kRecv][3], acc[kRecv][3];
+#pragma unroll
+  for (int r = 0; r < kRecv; ++r) {
+    const int i = min(g0 + r * kLanes + lane, nl - 1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      p[r][c] = rows[3 * i + c];
+      acc[r][c] = 0.0f;
+    }
+  }
+
+  for (int t = split; t < tiles; t += splits) {
+    sm.src[lane] = next_src;
+#pragma unroll
+    for (int r = 0; r < kRecv; ++r) {
+      const int row = r * kLanes + lane;
+#pragma unroll
+      for (int h = 0; h < kRuns; ++h) {
+        sm.mask[4 * h][row] = next_mask[r][h].x;
+        sm.mask[4 * h + 1][row] = next_mask[r][h].y;
+        sm.mask[4 * h + 2][row] = next_mask[r][h].z;
+        sm.mask[4 * h + 3][row] = next_mask[r][h].w;
+      }
+    }
+    __syncwarp();
+    if (t + splits < tiles) fetch(t + splits);
+    const int j0 = t * kSrcTile;
+    const int cnt = min(kSrcTile, n - j0);
+    if (cnt < kSrcTile || (!kDiagInMask && tile_meets_group(j0, g0))) {
+      int skip_k[kRecv];
+#pragma unroll
+      for (int r = 0; r < kRecv; ++r) skip_k[r] = kDiagInMask ? -1 : g0 + r * kLanes + lane - j0;
+      masked_tile<true>(sm, lane, p, acc, skip_k, cnt);
+    } else {
+      const int none[kRecv] = {-1, -1, -1, -1};
+      masked_tile<false>(sm, lane, p, acc, none, kSrcTile);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRecv; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sm.part[c * kGroup + r * kLanes + lane] = acc[r][c];
+  }
+  sum_splits(smem[0].part, static_cast<int>(sizeof(MaskedWarpSmem) / sizeof(float)), part,
+             counters, out, g0, nl);
 }
 
 }  // namespace
+}  // namespace eet
 
 extern "C" {
 
-int eet_accel_f32_tile() { return kTile; }
+int eet_accel_f32_tile() { return eet::kTile; }
 
 // Kernel 5.  pos: (N, 3) f32 sources and receivers; mu: (N,) f32; part:
 // (splits, N, 3) scratch; out: (N, 3).  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 int eet_accel_f32(const float* pos, const float* mu, float* part, float* out, int n, int splits,
                   cudaStream_t stream) {
-  return launch<false, false>(pos, mu, pos, nullptr, part, out, n, n, splits, stream);
+  using namespace eet;
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  dim3 grid(n_tiles, splits);
+  accel_f32_partial<<<grid, kTile, 0, stream>>>(pos, mu, part, n, tiles_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_f32_reduce(part, out, 3 * n, splits, stream);
 }
 
 // Kernel 7.  pos: (N, 3) f32 sources; mu: (N,) f32; rows: (NL, 3) f32
-// receivers; mask: (NL, N) int8; part: (splits, NL, 3) scratch; out: (NL, 3).
-// Without diag_in_mask the receivers must be the sources (NL == N) and the
-// self pair is skipped by index.
-int eet_accel_f32_masked(const float* pos, const float* mu, const float* rows,
-                         const int8_t* mask, float* part, float* out, int n, int nl, int splits,
-                         int diag_in_mask, cudaStream_t stream) {
-  if (diag_in_mask) {
-    return launch<true, true>(pos, mu, rows, mask, part, out, n, nl, splits, stream);
-  }
-  return launch<true, false>(pos, mu, rows, mask, part, out, n, nl, splits, stream);
+// receivers; mask: (NL, N) int8; part: (blocks, NL, 3) scratch; counters:
+// one unsigned a group of 128 receivers, zero (and left zero); out: (NL,
+// 3).  Without diag_in_mask the receivers must be the sources (NL == N) and
+// the self pair is skipped by index.  `warps` warps a block times `blocks`
+// blocks are the source splits of each group (ops/cuda_nbody.py
+// `_f32_pair_geometry`, from N alone).  Launches on `stream` and returns the
+// cudaError_t of the launch (0 = launched).
+int eet_accel_f32_masked(const float* pos, const float* mu, const float* rows, const int8_t* mask,
+                         float* part, unsigned* counters, float* out, int n, int nl, int warps,
+                         int blocks, int diag_in_mask, cudaStream_t stream) {
+  using namespace eet;
+  if (n < 1 || nl < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pair_kernel(diag_in_mask ? accel_f32_masked_kernel<true>
+                                         : accel_f32_masked_kernel<false>,
+                            sizeof(MaskedWarpSmem), (nl + kGroup - 1) / kGroup, warps, blocks,
+                            stream, pos, mu, rows, mask, part, counters, out, n, nl);
 }
 
 }  // extern "C"

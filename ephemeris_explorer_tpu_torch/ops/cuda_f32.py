@@ -5,10 +5,11 @@ Counterpart of ``ephemeris_explorer_tpu.ops.pallas_nbody``'s fast f32 mode,
 ``pairwise_accel_f32`` (TPU kernel ``_accel_kernel_f32``), and of the split
 mode's weak tail, ``pairwise_accel_f32_masked`` and
 ``pairwise_accel_f32_masked_rows`` (TPU kernel ``_accel_kernel_f32_masked``).
-Both CUDA kernels are instances of one template in ``csrc/accel_f32.cu``; its
-header note says what bounds them on an H100 and how the design answers
-that.  The Pallas tile arguments are the TPU's and are not taken: the
-kernels take any N.
+Both CUDA kernels are in ``csrc/accel_f32.cu`` (kernel 7 on the warp-tiled
+loop of ``csrc/forcef32.cuh``, one launch an evaluation); its header note
+says what bounds them on an H100 and how the designs answer that.  The
+Pallas tile arguments are the TPU's and are not taken: the kernels take any
+N.
 
 The wrappers take the plain PyTorch versions only for CPU tensors; on CUDA
 tensors they launch the kernel or raise.  ``pairwise_accel_f32.launches``
@@ -21,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .cuda_nbody import _check_input, _source_splits, on_device
+from .cuda_nbody import (F32_PAIR_GROUP, _check_input, _f32_pair_geometry, _pair_counters,
+                         _source_splits, on_device)
 from .eft import const
 
 
@@ -114,14 +116,15 @@ def _masked(pos, mu, mask, rows, diag_in_mask):
     if n == 0 or nl == 0:
         return out.zero_()
     lib = _build.library()
-    # the split count follows from the sources alone, so the rows form sums
-    # every receiver as the square form does
-    splits = _source_splits(-(-n // lib.eet_accel_f32_tile()))
-    part = torch.empty((splits, nl, 3), dtype=torch.float32, device=dev)
+    # the splits follow from the sources alone, so the rows form sums every
+    # receiver as the square form does
+    warps, blocks = _f32_pair_geometry(n)
+    part = torch.empty((blocks, nl, 3), dtype=torch.float32, device=dev)
     with on_device(dev) as stream:
+        counters = _pair_counters(dev, stream, -(-nl // F32_PAIR_GROUP))
         err = lib.eet_accel_f32_masked(
             pos.data_ptr(), mu.data_ptr(), rows.data_ptr(), mask.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, nl, splits, int(diag_in_mask), stream,
+            counters.data_ptr(), out.data_ptr(), n, nl, warps, blocks, int(diag_in_mask), stream,
         )
     _build.check(err, "accel_f32_masked")
     pairwise_accel_f32_masked.launches += 1

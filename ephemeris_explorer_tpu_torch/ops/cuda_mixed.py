@@ -4,7 +4,8 @@ Counterpart of ``ephemeris_explorer_tpu.ops.pallas_nbody.pairwise_accel_mixed``
 (TPU kernel ``_accel_kernel_mixed``): error-free pair differences of split
 (hi, lo) f32 positions, then the f32 weight chain of kernel 5, ~1e-6
 relative force error for every pair geometry.  The CUDA source is
-``csrc/accel_mixed.cu``; its header note says what bounds it on an H100 and
+``csrc/accel_mixed.cu`` (the warp-tiled loop of ``csrc/forcef32.cuh``, one
+launch an evaluation); its header note says what bounds it on an H100 and
 how the design answers that.  Positions are split with
 :func:`.cuda_nbody.split_f64` (``transpose=True``).
 
@@ -21,7 +22,8 @@ import torch
 from .. import _build
 from . import eft
 from .cuda_f32 import _f32_sum, _self_pairs
-from .cuda_nbody import _check_input, _source_splits, on_device
+from .cuda_nbody import (F32_PAIR_GROUP, _check_input, _f32_pair_geometry, _pair_counters,
+                         on_device)
 
 
 def pairwise_accel_mixed_plain(pos_hi, pos_lo, mu):
@@ -57,11 +59,13 @@ def pairwise_accel_mixed(pos_hi, pos_lo, mu):
     if n == 0:
         return out
     lib = _build.library()
-    splits = _source_splits(-(-n // lib.eet_accel_mixed_tile()))
-    part = torch.empty((splits, n, 3), dtype=torch.float32, device=dev)
+    warps, blocks = _f32_pair_geometry(n)
+    part = torch.empty((blocks, n, 3), dtype=torch.float32, device=dev)
     with on_device(dev) as stream:
+        counters = _pair_counters(dev, stream, -(-n // F32_PAIR_GROUP))
         err = lib.eet_accel_mixed(pos_hi.data_ptr(), pos_lo.data_ptr(), mu.data_ptr(),
-                                  part.data_ptr(), out.data_ptr(), n, splits, stream)
+                                  part.data_ptr(), counters.data_ptr(), out.data_ptr(), n, warps,
+                                  blocks, stream)
     _build.check(err, "accel_mixed")
     pairwise_accel_mixed.launches += 1
     return out

@@ -43,6 +43,54 @@ def _source_splits(n_tiles: int) -> int:
     return -(-n_tiles // per_split)
 
 
+# The warp-tiled loop of kernels 6 and 7 (csrc/forcef32.cuh): a warp holds a
+# group of 128 receivers and walks one split of the 32-source tiles; a block
+# holds up to 8 warps, splits of one group, and a row of blocks all of a
+# group's splits.  About this many warps are wanted in flight (16 on each of
+# an H100's 132 SMs).
+F32_PAIR_TILE = 32
+F32_PAIR_GROUP = 128
+F32_PAIR_WARPS = 8
+_F32_PAIR_TARGET_WARPS = 16 * 132
+
+
+def _f32_pair_geometry(n: int) -> tuple[int, int]:
+    """(warps a block, blocks a group) of kernels 6 and 7 on N sources: the
+    splits = warps x blocks of every receiver group, at most one a tile so
+    that none is empty.  It depends on N alone, so a receiver is summed in
+    the same order whatever the receivers beside it (the rows form)."""
+    tiles = -(-n // F32_PAIR_TILE)
+    groups = -(-n // F32_PAIR_GROUP)
+    want = -(-_F32_PAIR_TARGET_WARPS // groups)
+    splits = max(1, min(want, tiles))
+    if splits <= F32_PAIR_WARPS:
+        return splits, 1
+    return F32_PAIR_WARPS, splits // F32_PAIR_WARPS
+
+
+_PAIR_COUNTERS: dict = {}
+
+
+def _pair_counters(dev: torch.device, stream: int, groups: int) -> torch.Tensor:
+    """The per-receiver-group arrival counters of kernels 6 and 7 launched on
+    ``stream``: zeros between launches (each launch's last block of a group
+    rearms its counter), one buffer a stream so that launches in flight on
+    two streams never share one."""
+    key = (dev.index, stream)
+    counters = _PAIR_COUNTERS.get(key)
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(max(groups, 64), dtype=torch.int32, device=dev)
+        _PAIR_COUNTERS[key] = counters
+    return counters
+
+
+def _f32_split_tiles(n: int, splits: int) -> list[list[int]]:
+    """The tiles of each split in the order the split adds them, as the
+    kernels walk them (csrc/forcef32.cuh): split s of S takes s, s + S,
+    s + 2 S, ... below T = ceil(N / 32)."""
+    return [list(range(s, -(-n // F32_PAIR_TILE), splits)) for s in range(splits)]
+
+
 def split_f64(x: torch.Tensor, transpose: bool = False):
     """Split an f64 tensor into exact (hi, lo) f32 parts (on its device)."""
     if transpose:

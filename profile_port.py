@@ -27,9 +27,12 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   (``elm2_gen_scan_f64``, one launch);
 * Y: a year of full_solar_system at ``"f64"`` through ``generate_ephemeris``
   (startup, kernel 11-f64 a chunk, the fit passes), as ``chip_smoke.py``
-  phase 7 runs it; its steps are the year's 52,560.
+  phase 7 runs it; its steps are the year's 52,560;
+* S (not a default): kernels 6 and 7 at N = 4096 on each launch geometry of
+  ``GEOMETRIES`` (warps a block x blocks a receiver group), device µs per
+  call by CUDA-graph replay, not profiled.
 
-``--loops`` picks the paths (default all nine).  For each: wall µs per step (synchronised host timer around the profiled
+``--loops`` picks the paths (default the nine profiled ones).  For each: wall µs per step (synchronised host timer around the profiled
 loop), device µs per step (the sum of the CUDA kernels' self time), the
 idle share 1 - device / wall, and the kernels by device time with their
 launches per step.  Each loop is also timed without the profiler.  Prints
@@ -90,6 +93,80 @@ def profile_loop(torch, name: str, body, steps: int, sync) -> dict:
         "top": [{"kernel": k[:120], "us_per_step": us / steps, "share": us / device_us,
                  "calls_per_step": c / steps} for k, us, c in events[:TOP]],
     }
+
+
+def _graph_us(torch, fn, reps: int = 20) -> float:
+    """Device µs per call: `reps` calls captured in one CUDA graph, replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / reps
+
+
+# (warps a block, blocks a receiver group) of kernels 6 and 7 swept by --loops S
+GEOMETRIES = ((8, 8), (8, 4), (4, 8), (8, 16), (4, 16), (8, 12), (8, 6))
+
+
+def geometry_sweep(torch, pos, mu, dev) -> list:
+    """Kernels 6 and 7 (K = 16 strong mask, diagonal in it) at N = 4096 on
+    every geometry of GEOMETRIES, called through the library with the
+    geometry given, each result checked bitwise for two calls: device µs
+    per call."""
+    from chip_smoke import STRONG_K
+    from ephemeris_explorer_tpu_torch import _build
+    from ephemeris_explorer_tpu_torch.ops import cuda_nbody, split
+
+    lib = _build.library()
+    p64 = torch.as_tensor(pos, dtype=torch.float64, device=dev)
+    m64 = torch.as_tensor(mu, dtype=torch.float64, device=dev)
+    n = p64.shape[0]
+    ph, pl = cuda_nbody.split_f64(p64, transpose=True)
+    p32, m32 = p64.float(), m64.float().reshape(1, -1)
+    mask = split.strong_pair_mask(split.strong_pair_indices(p64, m64, k=STRONG_K), n)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    part = torch.empty((max(b for _, b in GEOMETRIES), n, 3), dtype=torch.float32, device=dev)
+    groups = -(-n // cuda_nbody.F32_PAIR_GROUP)
+
+    def stream():  # the current stream, which a graph capture replaces
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def args():
+        s = stream()
+        return s, cuda_nbody._pair_counters(dev, s, groups).data_ptr()
+
+    calls = {
+        "accel_mixed": lambda w, b: lib.eet_accel_mixed(
+            ph.data_ptr(), pl.data_ptr(), m32.data_ptr(), part.data_ptr(), args()[1],
+            out.data_ptr(), n, w, b, stream()),
+        "accel_f32_masked": lambda w, b: lib.eet_accel_f32_masked(
+            p32.data_ptr(), m32.data_ptr(), p32.data_ptr(), mask.data_ptr(), part.data_ptr(),
+            args()[1], out.data_ptr(), n, n, w, b, 1, stream()),
+    }
+    rows = []
+    for name, call in calls.items():
+        for w, b in GEOMETRIES:
+            _build.check(call(w, b), name)
+            first = out.clone()
+            _build.check(call(w, b), name)
+            torch.cuda.synchronize()
+            rows.append({"kernel": name, "n": n, "warps": w, "blocks": b, "splits": w * b,
+                         "device_us": _graph_us(torch, lambda: call(w, b)),
+                         "two_calls_bitwise": bool(torch.equal(first, out)),
+                         "default": (w, b) == cuda_nbody._f32_pair_geometry(n)})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -226,8 +303,14 @@ def main(argv=None) -> int:
             torch, "full_solar_system_f64_year",
             lambda: eph.generate_ephemeris(fss.state, fss.settings, year, device=dev),
             int(round(year.as_seconds() / fss.settings.dt.as_seconds())), sync))
+    if "S" in paths:
+        sweep = geometry_sweep(torch, pos, mu, dev)
+        for r in sweep:
+            print(json.dumps(r | {"card": smi}))
+        results.append({"loop": "geometry_sweep_kernels6_7", "rows": sweep})
     for r in results:
-        print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))
+        if "rows" not in r:
+            print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": smi, "loops": results}, indent=1))

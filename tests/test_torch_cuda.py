@@ -258,9 +258,23 @@ def test_kernel5_matches_plain_on_card(cuda_device, n):
         assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
 
 
-@pytest.mark.parametrize("n", [1, 32, 1000, 4096])
+F32_PAIR_SIZES = [1, 2, 31, 127, 128, 129, 1000, 4096]
+
+
+def test_f32_pair_shape_on_card(cuda_device):
+    """The tile and receiver group compiled into kernels 6 and 7 are the ones
+    `_f32_pair_geometry` partitions."""
+    from ephemeris_explorer_tpu_torch import _build
+
+    lib = _build.library()
+    assert lib.eet_f32_pair_tile() == cuda_nbody.F32_PAIR_TILE
+    assert lib.eet_f32_pair_group() == cuda_nbody.F32_PAIR_GROUP
+
+
+@pytest.mark.parametrize("n", F32_PAIR_SIZES)
 def test_kernel6_matches_plain_on_card(cuda_device, n):
-    """Kernel 6 against its plain version: <= 1e-6 of max |a|; one launch."""
+    """Kernel 6 against its plain version: <= 1e-6 of max |a|; one launch;
+    n=1 has no pair and gives 0; a second call is bitwise the first."""
     pos, mu = _cloud(n, 12)
     ph, pl = cuda_nbody.split_f64(torch.tensor(pos, device=cuda_device), transpose=True)
     m32 = torch.tensor(mu, device=cuda_device).float().reshape(1, -1)
@@ -268,22 +282,33 @@ def test_kernel6_matches_plain_on_card(cuda_device, n):
     k = cuda_mixed.pairwise_accel_mixed(ph, pl, m32)
     assert cuda_mixed.pairwise_accel_mixed.launches == before + 1
     r = cuda_mixed.pairwise_accel_mixed_plain(ph, pl, m32)
+    assert torch.isfinite(k).all()
     if n == 1:
         assert not k.any() and not r.any()
     else:
         assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
+    assert torch.equal(cuda_mixed.pairwise_accel_mixed(ph, pl, m32), k)
 
 
-@pytest.mark.parametrize("n", [32, 1000, 4096])
+def _kernel7_inputs(n, dev):
+    """The cloud, its f32 inputs and its strong-set mask (K = min(16, n - 1),
+    diagonal included; n = 1: the diagonal alone)."""
+    pos, mu = _cloud(n, 13)
+    tp, tm = torch.tensor(pos, device=dev), torch.tensor(mu, device=dev)
+    if n == 1:
+        mask = torch.ones((1, 1), dtype=torch.int8, device=dev)
+    else:
+        mask = split.strong_pair_mask(split.strong_pair_indices(tp, tm, k=min(16, n - 1)), n)
+    return (*_f32_inputs(pos, mu, dev), mask)
+
+
+@pytest.mark.parametrize("n", F32_PAIR_SIZES)
 def test_kernel7_matches_plain_on_card(cuda_device, n):
     """Kernel 7 in both modes against its plain version (<= 1e-6 of max |a|),
-    and its rows form bitwise against the square form's row slices (ragged
-    row blocks included)."""
-    pos, mu = _cloud(n, 13)
-    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
-    idx = split.strong_pair_indices(tp, tm, k=16)
-    mask = split.strong_pair_mask(idx, n)
-    p32, m32 = _f32_inputs(pos, mu, cuda_device)
+    a second call bitwise the first, and its rows form bitwise against the
+    square form's row slices, at offsets that cut a lane's 32-receiver block,
+    a 128-receiver group and a 32-source tile."""
+    p32, m32, mask = _kernel7_inputs(n, cuda_device)
     no_diag = mask.clone()
     no_diag.fill_diagonal_(0)
     for m, diag in ((no_diag, False), (mask, True)):
@@ -291,11 +316,33 @@ def test_kernel7_matches_plain_on_card(cuda_device, n):
         k = cuda_f32.pairwise_accel_f32_masked(p32, m32, m, diag_in_mask=diag)
         assert cuda_f32.pairwise_accel_f32_masked.launches == before + 1
         r = cuda_f32.pairwise_accel_f32_masked_plain(p32, m32, m, diag_in_mask=diag)
+        assert torch.isfinite(k).all()
         assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
-    for r0, nl in ((0, n // 2), (n // 4, 100), (n - 7, 7)):
+        assert torch.equal(cuda_f32.pairwise_accel_f32_masked(p32, m32, m, diag_in_mask=diag), k)
+    cuts = ((0, n // 2), (n // 4, 100), (n - 7, 7), (33, 95), (127, 2), (31, 34), (0, n))
+    for r0, nl in cuts:
+        r0, nl = min(r0, n - 1), max(1, min(nl, n - min(r0, n - 1)))
         rows = cuda_f32.pairwise_accel_f32_masked_rows(p32, m32, mask[r0:r0 + nl].contiguous(),
                                                        p32[r0:r0 + nl].contiguous())
-        assert torch.equal(rows, k[r0:r0 + nl])
+        assert torch.equal(rows, k[r0:r0 + nl]), (r0, nl)
+
+
+@pytest.mark.parametrize("n", [2, 129, 4096])
+def test_kernel7_all_masked_row_is_zero_on_card(cuda_device, n):
+    """A receiver row masked in full gives exactly zero, in both modes and in
+    the rows form; the other rows are unchanged."""
+    p32, m32, mask = _kernel7_inputs(n, cuda_device)
+    full = mask.clone()
+    full[n // 2] = 1
+    for diag in (False, True):
+        base = cuda_f32.pairwise_accel_f32_masked(p32, m32, mask, diag_in_mask=diag)
+        k = cuda_f32.pairwise_accel_f32_masked(p32, m32, full, diag_in_mask=diag)
+        assert not k[n // 2].any()
+        keep = torch.arange(n, device=cuda_device) != n // 2
+        assert torch.equal(k[keep], base[keep])
+    rows = cuda_f32.pairwise_accel_f32_masked_rows(p32, m32, full[n // 2:].contiguous(),
+                                                   p32[n // 2:].contiguous())
+    assert not rows[0].any()
 
 
 @pytest.mark.parametrize("n, k", [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40)])

@@ -585,6 +585,64 @@ def test_plain_versions_take_any_n():
     assert _rel(cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="f64"), ref) < 1e-6
 
 
+# -- the launch geometry of kernels 6 and 7 ------------------------------------
+
+@pytest.mark.parametrize("n0", range(1, 5001, 1000))
+def test_f32_pair_geometry_partitions_the_tiles(n0):
+    """For every N in [n0, n0 + 1000): the block and the split count stay
+    within the kernels' limits, no split is empty, each walks its tiles in
+    order, and the splits cover every 32-source tile once."""
+    for n in range(n0, n0 + 1000):
+        warps, blocks = cuda_nbody._f32_pair_geometry(n)
+        assert 1 <= warps <= cuda_nbody.F32_PAIR_WARPS
+        assert blocks == 1 or warps == cuda_nbody.F32_PAIR_WARPS
+        assert 1 <= warps * blocks <= -(-n // cuda_nbody.F32_PAIR_TILE)
+        splits = cuda_nbody._f32_split_tiles(n, warps * blocks)
+        assert all(splits), n
+        assert all(s == sorted(s) for s in splits), n
+        assert sorted(t for s in splits for t in s) == list(range(-(-n // cuda_nbody.F32_PAIR_TILE)))
+
+
+def test_f32_pair_geometry_at_the_main_path():
+    """N = 4096: 32 receiver groups x 64 splits (8 blocks of 8 warps), 2048
+    warps for the H100's 132 SMs, 2 tiles a warp."""
+    assert cuda_nbody._f32_pair_geometry(4096) == (8, 8)
+    assert {len(s) for s in cuda_nbody._f32_split_tiles(4096, 64)} == {2}
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 1000, 4096, 4999])
+def test_kernel7_launch_takes_its_splits_from_the_sources(n, monkeypatch):
+    """Kernel 7's launches in the square and the rows form get the geometry
+    of N, whatever NL and the row offset: the source side depends on N
+    alone, so a row slice is summed in the square form's order."""
+    from contextlib import contextmanager
+
+    calls = []
+
+    class FakeLib:
+        def eet_accel_f32_masked(self, *args):
+            calls.append(args[7:12])  # n, nl, warps, blocks, diag_in_mask
+            return 0
+
+    @contextmanager
+    def on_device(dev):
+        yield 0
+
+    monkeypatch.setattr(cuda_f32._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(cuda_f32, "on_device", on_device)
+    pos, mu = _cloud(n, 5)
+    p32, m32 = _f32(pos, mu)
+    mask = torch.zeros((n, n), dtype=torch.int8)
+    cuda_f32._masked(p32, m32, mask, p32, False)
+    for r0, nl in ((0, n), (n // 3, max(1, n // 3)), (n - 1, 1)):
+        cuda_f32._masked(p32, m32, mask[r0:r0 + nl].contiguous(), p32[r0:r0 + nl].contiguous(),
+                         True)
+    geometry = cuda_nbody._f32_pair_geometry(n)
+    assert calls[0] == (n, n, *geometry, 0)
+    assert [c[2:4] for c in calls] == [geometry] * 4
+    assert [c[1] for c in calls[1:]] == [n, max(1, n // 3), 1]
+
+
 def _meta_calls():
     pos, mu = _cloud(8, 6)
     p32, m32 = (t.to("meta") for t in _f32(pos, mu))
