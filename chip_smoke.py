@@ -20,11 +20,13 @@ them:
   phase 10), and ``precision="extended3"`` generation of full_solar_system
   through kernel 3 (path A, phase 11);
 * the force-mode ladder: kernels 5 (f32), 6 (mixed), 7 (masked f32) and 8
-  (two-float strong-pair correction) against their plain versions and the
-  JAX package's bars for the modes (phases 12-15; kernels 6 and 7 also
-  twice bitwise, with their share of their bound), and the ladder at
-  N = 4096 as ``bench.py:438-604`` drives it, 400 force evaluations per
-  mode, with each mode's error against native f64 (path C, phase 16);
+  (two-float strong-pair correction, both entries: the limb-fed one
+  bitwise to its plain version, the production f64 form bitwise to the
+  route it replaces) against their plain versions and the JAX package's
+  bars for the modes (phases 12-15; kernels 5-7 also twice bitwise, and
+  5-8 with their share of their bound), and the ladder at N = 4096 as
+  ``bench.py:438-604`` drives it, 400 force evaluations per mode, with each
+  mode's error against native f64 (path C, phase 16);
 * ensembles and the row decomposition: kernel 1's ensemble and rows forms,
   kernel 3's rows form and kernel 9 against their plain versions and the
   square forms (phases 17-19), ``ensemble16x4096`` as ``bench.py:379-435``
@@ -122,7 +124,8 @@ SHADOW_FACTOR = 10.0       # median divergence vs the f64 chaos floor's, after 4
 # versions: the f32 sums run in another order (the plain version's torch.sum
 # against the kernel's source order; measured on CPU at N = 4096: 9e-8 of
 # max|a| between the two orders), of max|a|.  Kernel 8: the plain version's
-# tree, op for op; only the f32 rsqrt seeds may differ by an ulp.
+# chain and tree, op for op, with CUDA's rsqrtf on both sides: checked
+# bitwise, and also held to STRONG_VS_PLAIN of max|c|.
 F32_VS_PLAIN = 1e-6
 STRONG_VS_PLAIN = 1e-14
 STRONG_K = 16              # bench.py:565
@@ -432,7 +435,7 @@ def main(argv=None) -> int:
                 if "registers" in ln]
         check((lib.eet_f32_pair_tile(), lib.eet_f32_pair_group())
               == (cuda_nbody.F32_PAIR_TILE, cuda_nbody.F32_PAIR_GROUP),
-              "kernels 6 and 7 were built for another tile or receiver group than "
+              "kernels 5-7 were built for another tile or receiver group than "
               "_f32_pair_geometry partitions")
         print(json.dumps({"phase": 2, "build_s": round(time.perf_counter() - t0, 3),
                           "ptxas": regs, "card": smi}))
@@ -1119,6 +1122,7 @@ def main(argv=None) -> int:
             out.append(against_plain(name, lambda: cuda_f32.pairwise_accel_f32(p32, m32),
                                      lambda: cuda_f32.pairwise_accel_f32_plain(p32, m32),
                                      F32_VS_PLAIN, [p32, m32]))
+            deterministic(name, lambda: cuda_f32.pairwise_accel_f32(p32, m32), out[-1])
             keep("accel_f32", out[-1])
         # test_f32_fast_mode_error_envelope's bar: within 1e-5 of kernel 1
         p, m = seeded_cloud(64, 21)
@@ -1200,9 +1204,12 @@ def main(argv=None) -> int:
     if 15 in phases:
         t_phase = time.perf_counter()
         out = []
-        for name, p, m, k in [(c[0], c[1], c[2], 6 if c[0] == "hierarchy" else STRONG_K)
-                              for c in ladder_cases] + [("cloud64_k40", *seeded_cloud(64, 14), 40)]:
+        cases = [(c[0], c[1], c[2], 6 if c[0] == "hierarchy" else STRONG_K) for c in ladder_cases]
+        cases += [("cloud64_k40", *seeded_cloud(64, 14), 40),
+                  ("cloud200_k128", *seeded_cloud(200, 14), 128)]
+        for name, p, m, k in cases:
             tp, tm = dev64(p, m)
+            n = len(p)
             idx = split.strong_pair_indices(tp, tm, k=k)
             ph, pl = cuda_nbody.split_f64(tp)
             mh, ml = cuda_nbody.split_f64(tm)
@@ -1211,8 +1218,30 @@ def main(argv=None) -> int:
                                  lambda: cuda_split.strong_correction_pair_plain(*args),
                                  STRONG_VS_PLAIN, args, combine=cuda_nbody.combine_f64)
             case["k"] = k
+            kh, kl = cuda_split.strong_correction_pair(*args)
+            rh, rl = cuda_split.strong_correction_pair_plain(*args)
+            check(torch.equal(kh, rh) and torch.equal(kl, rl),
+                  f"kernel 8 vs plain on {name} (K = {k}): not bitwise")
+            if "bound" in case:
+                case["bound_share"] = case["bound"]["bound_ms"] * 1e3 / case["kernel_device_us"]
+            # the production form (f64 in, kernel 7's a32 added in the kernel)
+            # against the route it replaces, square and rows, bitwise
+            mask = split.strong_pair_mask(idx, n)
+            a32 = cuda_f32.pairwise_accel_f32_masked(tp.float(), tm.float().reshape(1, -1), mask,
+                                                     diag_in_mask=True)
+            for r0 in (0, n // 3):
+                rows = None if r0 == 0 else tp[r0:]
+                idx_r, a_r = idx[r0:].contiguous(), a32[r0:].contiguous()
+                composed = cuda_nbody.combine_f64(*cuda_split.strong_correction_pair(
+                    ph, pl, *cuda_nbody.split_f64(tp[r0:]), mh, ml, idx_r)) + a_r.double()
+                fused = cuda_split.strong_correction_fused(tp, tm, idx_r, rows, a_r)
+                check(torch.equal(fused, composed),
+                      f"kernel 8's f64 form on {name} rows {r0}: not the composed route")
+            case["fused_is_composed_route"] = True
+            case["fused_device_us"] = graph_ms(
+                lambda: cuda_split.strong_correction_fused(tp, tm, idx, a32=a32), 20) * 1e3
             sq = cuda_split._strong_correction_fast(tp, tm, idx)
-            r0 = len(p) // 3
+            r0 = n // 3
             rows = cuda_split._strong_correction_fast(tp, tm, idx[r0:].contiguous(), rows=tp[r0:])
             check(torch.equal(rows, sq[r0:]), f"kernel 8 rows form on {name} is not bitwise")
             case["rows_form_bitwise"] = True

@@ -126,12 +126,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_accel_limbs3_tile.restype = _int
     lib.eet_elm2q_update.argtypes = [_vp, _int, _vp, _int, ctypes.c_uint] + [_vp] * 10 + [_int, _vp]
     lib.eet_elm2q_update.restype = _int
-    lib.eet_accel_f32.argtypes = [_vp] * 4 + [_int, _int, _vp]
+    lib.eet_accel_f32.argtypes = [_vp] * 5 + [_int] * 3 + [_vp]
     lib.eet_accel_f32.restype = _int
     lib.eet_accel_f32_masked.argtypes = [_vp] * 7 + [_int] * 5 + [_vp]
     lib.eet_accel_f32_masked.restype = _int
-    lib.eet_accel_f32_tile.argtypes = []
-    lib.eet_accel_f32_tile.restype = _int
     lib.eet_accel_mixed.argtypes = [_vp] * 6 + [_int] * 3 + [_vp]
     lib.eet_accel_mixed.restype = _int
     lib.eet_f32_pair_tile.argtypes = []
@@ -140,6 +138,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_f32_pair_group.restype = _int
     lib.eet_strong_corr.argtypes = [_vp] * 9 + [_int, _int, _int, _vp]
     lib.eet_strong_corr.restype = _int
+    lib.eet_strong_corr_f64.argtypes = [_vp] * 6 + [_int] * 3 + [_vp]
+    lib.eet_strong_corr_f64.restype = _int
     lib.eet_strong_corr_dd.argtypes = [_vp] * 5 + [_int, _int, _vp]
     lib.eet_strong_corr_dd.restype = _int
     lib.eet_accel_sym.argtypes = [_vp] * 10 + [_int, _vp]

@@ -190,7 +190,7 @@ int eet_accel_mixed(const float* pos_hi, const float* pos_lo, const float* mu, f
                             warps, blocks, stream, pos_hi, pos_lo, mu, part, counters, out, n);
 }
 
-// The warp-tiled loop's tile and receiver group (kernels 6 and 7), which
+// The warp-tiled loop's tile and receiver group (kernels 5-7), which
 // `_f32_pair_geometry` assumes.
 int eet_f32_pair_tile() { return eet::kSrcTile; }
 int eet_f32_pair_group() { return eet::kGroup; }

@@ -1,8 +1,7 @@
 // Pieces shared by the f32 pair-force kernels (accel_f32.cu, kernels 5 and
-// 7, and accel_mixed.cu, kernel 6): the f32 weight chain; kernel 5's tile
-// and the pass that adds its per-split partial sums in split order; and the
-// warp-tiled loop of kernels 6 and 7, whose launch adds its per-warp
-// partial sums in split order itself.
+// 7, and accel_mixed.cu, kernel 6): the f32 weight chain and the warp-tiled
+// loop's constants and launch, whose launch adds its per-warp partial sums
+// in split order itself.
 
 #pragma once
 
@@ -12,25 +11,11 @@
 
 namespace eet {
 
-// kernel 5: receivers per block, and sources per shared-memory tile
-constexpr int kF32Tile = 128;
-
-// r^2 of a difference, summed left to right as pallas_nbody.py:888 writes it.
-__device__ __forceinline__ float f32_r2(const float d[3]) {
-  return fadd(fadd(fmul(d[0], d[0]), fmul(d[1], d[1])), fmul(d[2], d[2]));
-}
-
-// mu / r^3 in f32 (pallas_nbody.py:890-894): the rsqrt seed, one Newton step
-// u (1.5 - 0.5 r2 u u), then mu (u u u), each product rounded as written.
-__device__ __forceinline__ float f32_weight(float r2, float mu) {
-  float u = rsqrtf(r2);
-  u = fmul(u, fsub(1.5f, fmul(fmul(fmul(0.5f, r2), u), u)));
-  return fmul(mu, fmul(fmul(u, u), u));
-}
-
-// f32_weight of R pairs with one source's mu, each step taken for every pair
-// before the next, so that the R chains interleave in the instruction
-// stream (the same operations on each pair: the same bits).
+// mu / r^3 in f32 (pallas_nbody.py:890-894) of R pairs with one source's
+// mu: the rsqrt seed, one Newton step u (1.5 - 0.5 r2 u u), then mu (u u u),
+// each product rounded as written; each step taken for every pair before the
+// next, so that the R chains interleave in the instruction stream (the same
+// operations on each pair: the same bits).
 template <int R>
 __device__ __forceinline__ void f32_weights(const float r2[R], float mu, float w[R]) {
   float u[R], t[R];
@@ -50,7 +35,8 @@ __device__ __forceinline__ void f32_weights(const float r2[R], float mu, float w
   for (int r = 0; r < R; ++r) w[r] = fmul(mu, fmul(t[r], u[r]));
 }
 
-// r^2 of R differences, step by step across the pairs (f32_r2's order).
+// r^2 of R differences, summed left to right as pallas_nbody.py:888 writes
+// it, step by step across the pairs.
 template <int R>
 __device__ __forceinline__ void f32_r2s(const float d[R][3], float r2[R]) {
   float t[R];
@@ -63,7 +49,7 @@ __device__ __forceinline__ void f32_r2s(const float d[R][3], float r2[R]) {
 }
 
 // ---------------------------------------------------------------------------
-// The warp-tiled pair loop of kernels 6 and 7.
+// The warp-tiled pair loop of kernels 5, 6 and 7.
 //
 // A warp holds a receiver group of kGroup receivers, kRecv a lane: lane l
 // holds receivers g0 + 32 r + l, r < kRecv.  It walks one split of the
@@ -147,27 +133,5 @@ inline int launch_pair_kernel(void (*kernel)(KArgs...), size_t warp_smem, int gr
   kernel<<<dim3(blocks, groups), warps * kLanes, warps * warp_smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
-
-namespace {
-
-// out[e] = sum over the S splits of part[s, e], f32 adds in split order
-// (kernel 5's second pass).
-__global__ void f32_partials_reduce(const float* __restrict__ part, float* __restrict__ out,
-                                    int m, int splits) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  float acc = part[e];
-  for (int s = 1; s < splits; ++s) acc = fadd(acc, part[static_cast<size_t>(s) * m + e]);
-  out[e] = acc;
-}
-
-// Launch the reduction over m = 3 NL outputs; returns cudaGetLastError().
-inline int launch_f32_reduce(const float* part, float* out, int m, int splits,
-                             cudaStream_t stream) {
-  f32_partials_reduce<<<(m + 255) / 256, 256, 0, stream>>>(part, out, m, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 }  // namespace eet

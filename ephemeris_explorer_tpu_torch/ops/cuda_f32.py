@@ -5,11 +5,11 @@ Counterpart of ``ephemeris_explorer_tpu.ops.pallas_nbody``'s fast f32 mode,
 ``pairwise_accel_f32`` (TPU kernel ``_accel_kernel_f32``), and of the split
 mode's weak tail, ``pairwise_accel_f32_masked`` and
 ``pairwise_accel_f32_masked_rows`` (TPU kernel ``_accel_kernel_f32_masked``).
-Both CUDA kernels are in ``csrc/accel_f32.cu`` (kernel 7 on the warp-tiled
-loop of ``csrc/forcef32.cuh``, one launch an evaluation); its header note
-says what bounds them on an H100 and how the designs answer that.  The
-Pallas tile arguments are the TPU's and are not taken: the kernels take any
-N.
+Both CUDA kernels are one body in ``csrc/accel_f32.cu``, the warp-tiled loop
+of ``csrc/forcef32.cuh`` with the mask compiled in or out, one launch an
+evaluation; its header note says what bounds them on an H100 and how the
+design answers that.  The Pallas tile arguments are the TPU's and are not
+taken: the kernels take any N.
 
 The wrappers take the plain PyTorch versions only for CPU tensors; on CUDA
 tensors they launch the kernel or raise.  ``pairwise_accel_f32.launches``
@@ -22,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .cuda_nbody import (F32_PAIR_GROUP, _check_input, _f32_pair_geometry, _pair_counters,
-                         _source_splits, on_device)
+from .cuda_nbody import F32_PAIR_GROUP, _check_input, _f32_pair_geometry, _pair_counters, on_device
 from .eft import const
 
 
@@ -78,6 +77,25 @@ def _launch_checks(pos, mu, dev):
     return n
 
 
+def _unmasked(pos, mu):
+    """Kernel 5 on CUDA tensors: pos (N, 3), mu (1, N)."""
+    dev = pos.device
+    n = _launch_checks(pos, mu, dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _build.library()
+    warps, blocks = _f32_pair_geometry(n)
+    part = torch.empty((blocks, n, 3), dtype=torch.float32, device=dev)
+    with on_device(dev) as stream:
+        counters = _pair_counters(dev, stream, -(-n // F32_PAIR_GROUP))
+        err = lib.eet_accel_f32(pos.data_ptr(), mu.data_ptr(), part.data_ptr(),
+                                counters.data_ptr(), out.data_ptr(), n, warps, blocks, stream)
+    _build.check(err, "accel_f32")
+    pairwise_accel_f32.launches += 1
+    return out
+
+
 def pairwise_accel_f32(pos, mu):
     """Fast-mode O(N^2) acceleration in f32 (kernel 5, ~1e-6 relative force
     error): pos (N, 3) f32, mu (1, N) f32 -> (N, 3) f32.  CPU tensors take
@@ -87,19 +105,7 @@ def pairwise_accel_f32(pos, mu):
         return pairwise_accel_f32_plain(pos, mu)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n = _launch_checks(pos, mu, dev)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    lib = _build.library()
-    splits = _source_splits(-(-n // lib.eet_accel_f32_tile()))
-    part = torch.empty((splits, n, 3), dtype=torch.float32, device=dev)
-    with on_device(dev) as stream:
-        err = lib.eet_accel_f32(pos.data_ptr(), mu.data_ptr(), part.data_ptr(), out.data_ptr(),
-                                n, splits, stream)
-    _build.check(err, "accel_f32")
-    pairwise_accel_f32.launches += 1
-    return out
+    return _unmasked(pos, mu)
 
 
 pairwise_accel_f32.launches = 0

@@ -43,7 +43,7 @@ def _source_splits(n_tiles: int) -> int:
     return -(-n_tiles // per_split)
 
 
-# The warp-tiled loop of kernels 6 and 7 (csrc/forcef32.cuh): a warp holds a
+# The warp-tiled loop of kernels 5-7 (csrc/forcef32.cuh): a warp holds a
 # group of 128 receivers and walks one split of the 32-source tiles; a block
 # holds up to 8 warps, splits of one group, and a row of blocks all of a
 # group's splits.  About this many warps are wanted in flight (16 on each of
@@ -55,7 +55,7 @@ _F32_PAIR_TARGET_WARPS = 16 * 132
 
 
 def _f32_pair_geometry(n: int) -> tuple[int, int]:
-    """(warps a block, blocks a group) of kernels 6 and 7 on N sources: the
+    """(warps a block, blocks a group) of kernels 5-7 on N sources: the
     splits = warps x blocks of every receiver group, at most one a tile so
     that none is empty.  It depends on N alone, so a receiver is summed in
     the same order whatever the receivers beside it (the rows form)."""
@@ -72,7 +72,7 @@ _PAIR_COUNTERS: dict = {}
 
 
 def _pair_counters(dev: torch.device, stream: int, groups: int) -> torch.Tensor:
-    """The per-receiver-group arrival counters of kernels 6 and 7 launched on
+    """The per-receiver-group arrival counters of kernels 5-7 launched on
     ``stream``: zeros between launches (each launch's last block of a group
     rearms its counter), one buffer a stream so that launches in flight on
     two streams never share one."""

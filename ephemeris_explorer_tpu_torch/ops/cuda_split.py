@@ -11,16 +11,22 @@ an H100 and how the design answers that) and every other pair with the
 masked f32 kernel (kernel 7, :mod:`.cuda_f32`).  ~1e-9 relative for
 dominated hierarchies, ~1e-7 for random clouds.
 
-:func:`strong_correction_pair` takes the plain PyTorch version
-(:func:`strong_correction_pair_plain`) only for CPU tensors; on CUDA tensors
+Kernel 8 has two entry points on one loop (one leaf a lane, the
+reference's tree in shuffles).  :func:`strong_correction_fused`, the
+production form, reads the f64 positions, receivers and mu, splits them
+into (hi, lo) f32 limbs in registers, and writes the f64 sum with kernel
+7's f32 weak tail added: the split mode is two casts, kernel 7 and kernel
+8.  :func:`strong_correction_pair` takes the split limbs and returns the raw
+(hi, lo) pair, the form the tests hold against the reference's chain.  Each
+takes its plain PyTorch version (:func:`strong_correction_fused_plain`,
+:func:`strong_correction_pair_plain`) only for CPU tensors; on CUDA tensors
 it launches the kernel or raises.  ``strong_correction_pair.launches``
-counts its kernel launches.  The kernel reads ``idx`` itself and gathers the
-split limbs, where the reference gathers, transposes and splits on the host.
-Kernel 9 (:func:`strong_correction_dd`, plain version
-:func:`strong_correction_dd_plain`, counter ``strong_correction_dd.launches``)
-is the same chain and tree on the f64-differenced feed, in the same source
-file: it gathers the f64 positions itself, differences them in f64 and
-splits the difference and mu in registers.
+counts both forms' launches.  Kernel 9 (:func:`strong_correction_dd`, plain
+version :func:`strong_correction_dd_plain`, counter
+``strong_correction_dd.launches``) is the same chain and tree on the
+f64-differenced feed, in the same source file: it gathers the f64 positions
+itself, differences them in f64 and splits the difference and mu in
+registers.
 """
 
 from __future__ import annotations
@@ -207,20 +213,97 @@ def _strong_correction_df64(pos, mu, idx):
     return combine_f64(hi, lo).to(pos.dtype)
 
 
-def _strong_correction_fast(pos, mu, idx, rows=None):
+def _f64_sum(hi, lo, a32):
+    """Kernel 8's f64 epilogue: f64(hi) + f64(lo) (pallas_nbody.py:1363),
+    then + f64(a32) where the weak tail is given (:1403)."""
+    out = combine_f64(hi, lo)
+    return out if a32 is None else out + a32.to(torch.float64)
+
+
+def strong_correction_fused_plain(pos, mu, idx, rows=None, a32=None):
+    """Plain PyTorch version of kernel 8's production form, on any device.
+
+    pos (N, 3) f64 sources, mu (N,) f64, idx (NL, K) int32, rows (NL, 3) f64
+    receivers (None: the square form, rows = pos), a32 (NL, 3) f32 or None.
+    Returns (NL, 3) f64.  The kernel's dataflow: the f64 sources gathered
+    and then split into limbs (the bits of split-then-gather), the KP - K
+    padding in front as in :func:`strong_correction_pair_plain`, the chain
+    and the tree, then :func:`_f64_sum`.
+    """
+    rows = pos if rows is None else rows
+    nl, k = idx.shape
+    if nl == 0 or k == 0:
+        z = torch.zeros((nl, 3), dtype=torch.float32, device=pos.device)
+        return _f64_sum(z, z, a32)
+    _check_indices(idx, pos.shape[0])
+    kp = _padded_width(k)
+    g = idx.long()
+    d = [eft.sub(_split_pad(pos[g, c], kp), TwoFloat(*split_f64(rows[:, c:c + 1])))
+         for c in range(3)]
+    return _f64_sum(*_correction_tree(d, _split_pad(mu[g], kp)), a32)
+
+
+def _fused(pos, mu, idx, rows, a32):
+    """Kernel 8's production form on CUDA tensors."""
+    dev = pos.device
+    n = pos.shape[0]
+    nl, k = idx.shape
+    f64 = torch.float64
+    _check_input("pos", pos, (n, 3), dev, dtype=f64)
+    _check_input("mu", mu, (n,), dev, dtype=f64)
+    if rows is None:
+        _check_input("idx", idx, (n, k), dev, dtype=torch.int32)
+    else:
+        _check_input("rows", rows, (nl, 3), dev, dtype=f64)
+        _check_input("idx", idx, (nl, k), dev, dtype=torch.int32)
+    if a32 is not None:
+        _check_input("a32", a32, (nl, 3), dev)
+    if nl == 0 or k == 0:
+        z = torch.zeros((nl, 3), dtype=torch.float32, device=dev)
+        return _f64_sum(z, z, a32)
+    if n == 0:
+        raise IndexError("idx indexes sources, but there are none")
+    out = torch.empty((nl, 3), dtype=f64, device=dev)
+    lib = _build.library()
+    with on_device(dev) as stream:
+        err = lib.eet_strong_corr_f64(
+            pos.data_ptr(), (pos if rows is None else rows).data_ptr(), mu.data_ptr(),
+            idx.data_ptr(), None if a32 is None else a32.data_ptr(), out.data_ptr(), n, nl, k,
+            stream,
+        )
+    _build.check(err, "strong_corr_f64")
+    strong_correction_pair.launches += 1
+    return out
+
+
+def strong_correction_fused(pos, mu, idx, rows=None, a32=None):
+    """Kernel 8's production form: the two-float strong-pair correction on
+    f64 inputs, as :func:`strong_correction_fused_plain` describes them,
+    written as (NL, 3) f64 with kernel 7's f32 weak tail ``a32`` added when
+    it is given.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel, which splits the f64 inputs itself and counts on
+    ``strong_correction_pair.launches``.  An index outside [0, N) raises
+    IndexError in the plain version and gives NaN for that receiver in the
+    kernel."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return strong_correction_fused_plain(pos, mu, idx, rows, a32)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _fused(pos, mu, idx, rows, a32)
+
+
+def _strong_correction_fast(pos, mu, idx, rows=None, a32=None):
     """The production strong-pair correction in two-float (~2^-47 per pair;
     ~1.7e-12 on the hierarchy fixture, where the limbs' 2^-48-of-|p|
     rounding meets close pairs): pos (N, 3) f64, mu (N,) f64, idx (NL, K)
-    int32 -> (NL, 3) in pos's dtype.  ``rows`` (NL, 3) selects the rows
-    form: receivers are the local rows, idx holds GLOBAL source columns.
-    Each receiver is computed alone, so the rows form equals the square
-    form's row slices bitwise."""
-    pos_hi, pos_lo = split_f64(pos)
-    rows_hi, rows_lo = (pos_hi, pos_lo) if rows is None else split_f64(rows)
-    mu_hi, mu_lo = split_f64(mu)
-    hi, lo = strong_correction_pair(pos_hi, pos_lo, rows_hi, rows_lo, mu_hi, mu_lo,
-                                    idx.to(torch.int32).contiguous())
-    return combine_f64(hi, lo).to(pos.dtype)
+    -> (NL, 3) f64, plus ``a32`` where given.  ``rows`` (NL, 3) selects the
+    rows form: receivers are the local rows, idx holds GLOBAL source
+    columns.  Each receiver is computed alone, so the rows form equals the
+    square form's row slices bitwise.  Kernel 8's production form."""
+    return strong_correction_fused(pos.contiguous(), mu.contiguous(),
+                                   idx.to(torch.int32).contiguous(),
+                                   None if rows is None else rows.contiguous(), a32)
 
 
 def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool = False):
@@ -232,7 +315,8 @@ def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool
     ``diag_in_mask=True`` here, as in the JAX package.
 
     ``corr`` selects the strong-pair correction:
-      - "fast" (production): the two-float correction, kernel 8;
+      - "fast" (production): the two-float correction, kernel 8, which also
+        adds kernel 7's weak tail (four launches in all on the card);
       - "dd": the f64-differenced feed (kernel 9, ~4e-14 on the hierarchy:
         the accuracy cross-check of "fast");
       - "f64": the native-f64 chain (the cross-check oracle).
@@ -240,13 +324,14 @@ def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool
     """
     if exact_f64:
         corr = "f64"
-    corrections = {"fast": _strong_correction_fast, "dd": _strong_correction_df64,
-                   "f64": _strong_correction}
-    if corr not in corrections:
+    if corr not in ("fast", "dd", "f64"):
         raise ValueError(f"unknown strong-pair correction {corr!r}")
     a32 = pairwise_accel_f32_masked(pos.to(torch.float32), mu.to(torch.float32).reshape(1, -1),
                                     mask, diag_in_mask=True)
-    return corrections[corr](pos, mu, idx) + a32.to(pos.dtype)
+    if corr == "fast":
+        return _strong_correction_fast(pos, mu, idx, a32=a32)
+    correction = _strong_correction_df64 if corr == "dd" else _strong_correction
+    return correction(pos, mu, idx) + a32.to(pos.dtype)
 
 
 def pairwise_accel_split_rows(pos, rows, mu, idx, mask):
@@ -259,4 +344,4 @@ def pairwise_accel_split_rows(pos, rows, mu, idx, mask):
     a32 = pairwise_accel_f32_masked_rows(pos.to(torch.float32),
                                          mu.to(torch.float32).reshape(1, -1), mask,
                                          rows.to(torch.float32))
-    return _strong_correction_fast(pos, mu, idx, rows=rows) + a32.to(pos.dtype)
+    return _strong_correction_fast(pos, mu, idx, rows=rows, a32=a32)

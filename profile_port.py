@@ -13,7 +13,8 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   on full_solar_system, after a first chunk that runs the startup;
 * path C: 400 force evaluations of each rung of the force-mode ladder at
   N = 4096 (f32: kernel 5; mixed: kernel 6; split, K = 16: kernels 7 and 8,
-  the strong set built once), as ``chip_smoke.py`` phase 16 runs them;
+  the strong set built once), as ``chip_smoke.py`` phase 16 runs them, with
+  the launches an evaluation of each rung;
 * path D: one 50-step scan of ``make_fused_ensemble_scan_f`` at E = 16 x
   N = 4096 (kernel 1's ensemble form then kernel 2 each step), as
   ``chip_smoke.py`` phase 20 runs it (``bench.py``'s ensemble16x4096);
@@ -28,8 +29,8 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 * Y: a year of full_solar_system at ``"f64"`` through ``generate_ephemeris``
   (startup, kernel 11-f64 a chunk, the fit passes), as ``chip_smoke.py``
   phase 7 runs it; its steps are the year's 52,560;
-* S (not a default): kernels 6 and 7 at N = 4096 on each launch geometry of
-  ``GEOMETRIES`` (warps a block x blocks a receiver group), device µs per
+* S (not a default): kernels 5, 6 and 7 at N = 4096 on each launch geometry
+  of ``GEOMETRIES`` (warps a block x blocks a receiver group), device µs per
   call by CUDA-graph replay, not profiled.
 
 ``--loops`` picks the paths (default the nine profiled ones).  For each: wall µs per step (synchronised host timer around the profiled
@@ -116,12 +117,12 @@ def _graph_us(torch, fn, reps: int = 20) -> float:
     return a.elapsed_time(b) * 1e3 / reps
 
 
-# (warps a block, blocks a receiver group) of kernels 6 and 7 swept by --loops S
+# (warps a block, blocks a receiver group) of kernels 5-7 swept by --loops S
 GEOMETRIES = ((8, 8), (8, 4), (4, 8), (8, 16), (4, 16), (8, 12), (8, 6))
 
 
 def geometry_sweep(torch, pos, mu, dev) -> list:
-    """Kernels 6 and 7 (K = 16 strong mask, diagonal in it) at N = 4096 on
+    """Kernels 5, 6 and 7 (K = 16 strong mask, diagonal in it) at N = 4096 on
     every geometry of GEOMETRIES, called through the library with the
     geometry given, each result checked bitwise for two calls: device µs
     per call."""
@@ -148,6 +149,9 @@ def geometry_sweep(torch, pos, mu, dev) -> list:
         return s, cuda_nbody._pair_counters(dev, s, groups).data_ptr()
 
     calls = {
+        "accel_f32": lambda w, b: lib.eet_accel_f32(
+            p32.data_ptr(), m32.data_ptr(), part.data_ptr(), args()[1], out.data_ptr(), n, w, b,
+            stream()),
         "accel_mixed": lambda w, b: lib.eet_accel_mixed(
             ph.data_ptr(), pl.data_ptr(), m32.data_ptr(), part.data_ptr(), args()[1],
             out.data_ptr(), n, w, b, stream()),
@@ -307,7 +311,7 @@ def main(argv=None) -> int:
         sweep = geometry_sweep(torch, pos, mu, dev)
         for r in sweep:
             print(json.dumps(r | {"card": smi}))
-        results.append({"loop": "geometry_sweep_kernels6_7", "rows": sweep})
+        results.append({"loop": "geometry_sweep_kernels5_7", "rows": sweep})
     for r in results:
         if "rows" not in r:
             print(json.dumps({k: v for k, v in r.items() if k != "top"} | {"card": smi}))

@@ -210,7 +210,7 @@ def test_extended3_generation_on_card(cuda_device):
 # -- the force-mode ladder (kernels 5-8) --------------------------------------
 
 F32_VS_PLAIN = 1e-6       # kernels 5-7, of max |a|: f32 sums in another order
-STRONG_VS_PLAIN = 1e-14   # kernel 8, of max |c|: same tree, rsqrt seeds may differ
+STRONG_VS_PLAIN = 1e-14   # kernel 9, of max |c|: same tree, rsqrt seeds may differ
 
 
 def _hierarchy(n=16, seed=7):
@@ -244,25 +244,28 @@ def _rel_rows(a, ref):
     return ((a - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
 
 
-@pytest.mark.parametrize("n", [1, 32, 1000, 4096])
+F32_PAIR_SIZES = [1, 2, 31, 127, 128, 129, 1000, 4096]
+
+
+@pytest.mark.parametrize("n", F32_PAIR_SIZES)
 def test_kernel5_matches_plain_on_card(cuda_device, n):
-    """Kernel 5 against its plain version: <= 1e-6 of max |a|; one launch."""
+    """Kernel 5 against its plain version: <= 1e-6 of max |a|; one launch;
+    n=1 has no pair and gives 0; a second call is bitwise the first."""
     p32, m32 = _f32_inputs(*_cloud(n, 11), cuda_device)
     before = cuda_f32.pairwise_accel_f32.launches
     k = cuda_f32.pairwise_accel_f32(p32, m32)
     assert cuda_f32.pairwise_accel_f32.launches == before + 1
     r = cuda_f32.pairwise_accel_f32_plain(p32, m32)
+    assert torch.isfinite(k).all()
     if n == 1:
         assert not k.any() and not r.any()
     else:
         assert (k - r).abs().max() <= F32_VS_PLAIN * r.abs().max()
-
-
-F32_PAIR_SIZES = [1, 2, 31, 127, 128, 129, 1000, 4096]
+    assert torch.equal(cuda_f32.pairwise_accel_f32(p32, m32), k)
 
 
 def test_f32_pair_shape_on_card(cuda_device):
-    """The tile and receiver group compiled into kernels 6 and 7 are the ones
+    """The tile and receiver group compiled into kernels 5-7 are the ones
     `_f32_pair_geometry` partitions."""
     from ephemeris_explorer_tpu_torch import _build
 
@@ -345,22 +348,29 @@ def test_kernel7_all_masked_row_is_zero_on_card(cuda_device, n):
     assert not rows[0].any()
 
 
-@pytest.mark.parametrize("n, k", [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40)])
-def test_kernel8_matches_plain_on_card(cuda_device, n, k):
-    """Kernel 8 against its plain version: <= 1e-14 of max |c| (K = 6 pads
-    to KP = 8 in front; K = 40 runs the instance with the stack in local
-    memory); the rows form bitwise against the square form's row slices."""
+KERNEL8_CASES = [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40), (200, 128)]
+
+
+def _kernel8_inputs(n, k, dev):
     pos, mu = _hierarchy() if n == 16 else _cloud(n, 14)
-    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
-    idx = split.strong_pair_indices(tp, tm, k=k)
+    tp, tm = torch.tensor(pos, device=dev), torch.tensor(mu, device=dev)
+    return tp, tm, split.strong_pair_indices(tp, tm, k=k)
+
+
+@pytest.mark.parametrize("n, k", KERNEL8_CASES)
+def test_kernel8_matches_plain_on_card(cuda_device, n, k):
+    """Kernel 8 against its plain version bitwise (K = 6 pads to KP = 8 in
+    front; K = 40 and 128 add in-lane before the shuffles); the rows form
+    bitwise against the square form's row slices."""
+    tp, tm, idx = _kernel8_inputs(n, k, cuda_device)
     ph, pl = cuda_nbody.split_f64(tp)
     mh, ml = cuda_nbody.split_f64(tm)
     before = cuda_split.strong_correction_pair.launches
     kh, kl = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, idx)
     assert cuda_split.strong_correction_pair.launches == before + 1
     rh, rl = cuda_split.strong_correction_pair_plain(ph, pl, ph, pl, mh, ml, idx)
-    kc, rc = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
-    assert (kc - rc).abs().max() <= STRONG_VS_PLAIN * rc.abs().max()
+    assert torch.isfinite(kh).all()
+    assert torch.equal(kh, rh) and torch.equal(kl, rl)
     sq = cuda_split._strong_correction_fast(tp, tm, idx)
     for r0 in (0, n // 3):
         nl = n - r0
@@ -368,24 +378,81 @@ def test_kernel8_matches_plain_on_card(cuda_device, n, k):
         assert rows.shape == (nl, 3) and torch.equal(rows, sq[r0:])
 
 
+@pytest.mark.parametrize("n, k", KERNEL8_CASES)
+def test_kernel8_fused_is_the_composed_route_on_card(cuda_device, n, k):
+    """Kernel 8's production form (f64 in, split in the kernel, the f64 sum
+    with kernel 7's a32 added) equals the route it replaces bitwise:
+    combine_f64 of the limb-fed kernel on split_f64's limbs, plus a32 in
+    f64; square and rows forms, with and without a32; one launch each."""
+    tp, tm, idx = _kernel8_inputs(n, k, cuda_device)
+    mask = split.strong_pair_mask(idx, n)
+    a32 = cuda_f32.pairwise_accel_f32_masked(tp.float(), tm.float().reshape(1, -1), mask,
+                                             diag_in_mask=True)
+    mh, ml = cuda_nbody.split_f64(tm)
+    for r0 in (0, n // 3):
+        rows = None if r0 == 0 else tp[r0:]
+        idx_r, a_r = idx[r0:].contiguous(), a32[r0:].contiguous()
+        ph, pl = cuda_nbody.split_f64(tp)
+        rh, rl = cuda_nbody.split_f64(tp[r0:])
+        combined = cuda_nbody.combine_f64(
+            *cuda_split.strong_correction_pair(ph, pl, rh, rl, mh, ml, idx_r))
+        before = cuda_split.strong_correction_pair.launches
+        got = cuda_split.strong_correction_fused(tp, tm, idx_r, rows, a_r)
+        assert cuda_split.strong_correction_pair.launches == before + 1
+        assert got.dtype == torch.float64 and torch.equal(got, combined + a_r.double())
+        assert torch.equal(cuda_split.strong_correction_fused(tp, tm, idx_r, rows), combined)
+        assert torch.equal(cuda_split.strong_correction_fused_plain(tp, tm, idx_r, rows, a_r), got)
+
+
+@pytest.mark.parametrize("n", [129, 1000, 4096])
+def test_split_rows_match_square_on_card(cuda_device, n):
+    """pairwise_accel_split_rows equals pairwise_accel_split's row slices
+    bitwise (kernels 7 and 8 in their rows forms), four launches for the
+    square form: two casts, kernel 7 and kernel 8."""
+    pos, mu = _cloud(n, 16)
+    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
+    idx = split.strong_pair_indices(tp, tm, k=16)
+    mask = split.strong_pair_mask(idx, n)
+    sq = cuda_split.pairwise_accel_split(tp, tm, idx, mask)
+    assert torch.isfinite(sq).all() and sq.dtype == torch.float64
+    for r0, nl in ((0, n), (n // 3, 100), (n - 7, 7), (33, 95)):
+        rows = cuda_split.pairwise_accel_split_rows(tp, tp[r0:r0 + nl], tm,
+                                                    idx[r0:r0 + nl].contiguous(),
+                                                    mask[r0:r0 + nl].contiguous())
+        assert torch.equal(rows, sq[r0:r0 + nl]), (r0, nl)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cuda_split.pairwise_accel_split(tp, tm, idx, mask)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert launches == 4, launches
+
+
 def test_kernel8_out_of_range_index_gives_nan(cuda_device):
     """An index outside [0, N) is not read: its receiver's correction is NaN,
-    every other receiver's is the in-range result bitwise."""
+    every other receiver's is the in-range result bitwise; in both entries
+    of kernel 8."""
     pos, mu = _cloud(64, 15)
     tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
     idx = split.strong_pair_indices(tp, tm, k=8)
     ph, pl = cuda_nbody.split_f64(tp)
     mh, ml = cuda_nbody.split_f64(tm)
-    good = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, idx)
     bad_idx = idx.clone()
     bad_idx[3, 5] = 64
     bad_idx[40, 0] = -1
-    bad = cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, bad_idx)
-    for g, b in zip(good, bad):
-        assert b[[3, 40]].isnan().all()
-        keep = torch.ones(64, dtype=torch.bool, device=cuda_device)
-        keep[[3, 40]] = False
-        assert torch.equal(b[keep], g[keep])
+    a32 = torch.ones((64, 3), dtype=torch.float32, device=cuda_device)
+    pairs = (
+        (cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, idx),
+         cuda_split.strong_correction_pair(ph, pl, ph, pl, mh, ml, bad_idx)),
+        ((cuda_split.strong_correction_fused(tp, tm, idx, a32=a32),),
+         (cuda_split.strong_correction_fused(tp, tm, bad_idx, a32=a32),)),
+    )
+    keep = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    keep[[3, 40]] = False
+    for good_out, bad_out in pairs:
+        for g, b in zip(good_out, bad_out):
+            assert b[[3, 40]].isnan().all()
+            assert torch.equal(b[keep], g[keep])
 
 
 def test_forcemode_reference_bars_on_card(cuda_device):
@@ -453,6 +520,12 @@ def test_forcemode_wrappers_check_inputs(cuda_device):
         cuda_split.strong_correction_pair(p32, p32, p32, p32, mh, mh, idx.long())
     with pytest.raises(ValueError):
         cuda_split.strong_correction_pair(p32, p32, p32[:8], p32, mh, mh, idx)
+    with pytest.raises(TypeError):
+        cuda_split.strong_correction_fused(p32, mh.double(), idx)
+    with pytest.raises(ValueError):
+        cuda_split.strong_correction_fused(p32.double(), mh.double(), idx[:8].contiguous())
+    with pytest.raises(TypeError):
+        cuda_split.strong_correction_fused(p32.double(), mh.double(), idx, a32=p32.double())
     assert [f.launches for f in counters] == before
 
 

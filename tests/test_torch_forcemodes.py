@@ -15,8 +15,10 @@ kernels (and torch's f32 rsqrt seed differs from XLA:CPU's by an ulp in a
 third of the inputs), so they are held to 1e-6 of max |a|.  Kernel 8's
 chain and tree are the reference's, but the same seed difference moves a
 pair's two-float weight by ~2^-48, so it is held to 1e-14 of max |c|; the
-tree itself is checked bitwise.  Kernel 9 is held the same way: 1e-14 of
-max |c| against the Pallas kernel, its feed and padding bitwise.
+tree itself, and kernel 8's lane order, are checked bitwise, and its
+production f64 form bitwise against the route it replaced.  Kernel 9 is
+held the same way: 1e-14 of max |c| against the Pallas kernel, its feed
+and padding bitwise.
 """
 
 import subprocess
@@ -301,6 +303,117 @@ def test_kernel8_padding_adds_exact_zero():
     second = eft.add_sloppy(TwoFloat(*terms[0]), TwoFloat(*terms[2]))
     want = eft.add_sloppy(first, second)
     assert torch.equal(got[0], want.hi) and torch.equal(got[1], want.lo)
+
+
+@pytest.mark.parametrize("kp", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_kernel8_lane_order_is_the_reference_tree(kp):
+    """Kernel 8's lane order, run here in Python: lane s of a segment of
+    L = min(KP, 32) lanes holds leaves s + L j and adds them in-lane for the
+    tree's levels m >= L (its KP / L leaves in bit-reversed order through a
+    stack); then each level m < L is a shuffle down by m within the segment
+    (lane s reads lane s + m, or its own value past the segment), the lower
+    lane's value the first operand; the KP - K padding leaves are exact
+    zeros.  Lane 0's sum is the reference's tree over the leaves with the
+    padding in front bitwise, even where its padding terms are signed zeros."""
+    k = kp // 2 + 1 if kp > 1 else 1
+    rng = np.random.default_rng(100 + kp)
+    leaves = _random_pairs(rng, (7, kp))
+    sign = torch.tensor(np.where(rng.uniform(size=(7, kp)) < 0.5, -1.0, 1.0).astype(np.float32))
+    pad = kp - k
+    hi = torch.cat([torch.zeros(7, pad) * sign[:, :pad], leaves.hi[:, pad:]], 1)
+    lo = torch.cat([torch.zeros(7, pad) * sign[:, :pad], leaves.lo[:, pad:]], 1)
+    ref = cuda_split._dd_tree_sum(TwoFloat(hi, lo))
+
+    seg = min(kp, 32)
+    per_lane = kp // seg
+    bits = per_lane.bit_length() - 1
+    zero = torch.zeros(7)
+    lanes = []
+    for s in range(seg):
+        stack = []
+        for t in range(per_lane):
+            j = int(format(t, f"0{bits}b")[::-1], 2) if bits else 0
+            leaf = s + seg * j
+            stack.append(TwoFloat(zero, zero) if leaf < pad else TwoFloat(hi[:, leaf], lo[:, leaf]))
+            m = t + 1
+            while m % 2 == 0:
+                top = stack.pop()
+                stack.append(eft.add_sloppy(stack.pop(), top))
+                m //= 2
+        assert len(stack) == 1
+        lanes.append(stack[0])
+    m = seg // 2
+    while m >= 1:
+        lanes = [eft.add_sloppy(lanes[s], lanes[s + m] if s + m < seg else lanes[s])
+                 for s in range(seg)]
+        m //= 2
+    assert torch.equal(lanes[0].hi, ref.hi) and torch.equal(lanes[0].lo, ref.lo)
+
+
+def _fused_case(case, k):
+    """f64 positions and mu, a strong set of K, and kernel 7's plain weak
+    tail: the hierarchy and the cloud at 64 bodies."""
+    pos, mu = _hierarchy(n=64) if case == "hierarchy64" else _cloud(64, 31)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=k)
+    mask = split.strong_pair_mask(idx, 64)
+    a32 = cuda_f32.pairwise_accel_f32_masked_plain(*_f32(pos, mu), mask, diag_in_mask=True)
+    return tp, tm, idx, mask, a32
+
+
+@pytest.mark.parametrize("form", ["square", "rows"])
+@pytest.mark.parametrize("k", [6, 16, 40])
+@pytest.mark.parametrize("case", ["hierarchy64", "cloud64"])
+def test_kernel8_fused_plain_is_the_composed_route(case, k, form):
+    """Kernel 8's production form (f64 in, split in place, the f64 sum with
+    a32 added) is the route it replaces, bitwise: combine_f64 of the
+    limb-fed correction on split_f64's limbs, plus a32 in f64; without a32
+    the combine alone.  So pairwise_accel_split and _rows keep their bits."""
+    tp, tm, idx, mask, a32 = _fused_case(case, k)
+    r0 = 0 if form == "square" else 64 // 3
+    rows = None if form == "square" else tp[r0:]
+    idx_r, a32_r = idx[r0:].contiguous(), a32[r0:].contiguous()
+    ph, pl = cuda_nbody.split_f64(tp)
+    rh, rl = cuda_nbody.split_f64(tp[r0:])
+    mh, ml = cuda_nbody.split_f64(tm)
+    combined = cuda_nbody.combine_f64(
+        *cuda_split.strong_correction_pair_plain(ph, pl, rh, rl, mh, ml, idx_r))
+    got = cuda_split.strong_correction_fused_plain(tp, tm, idx_r, rows, a32_r)
+    assert got.dtype == torch.float64 and got.shape == (64 - r0, 3)
+    assert torch.equal(got, combined + a32_r.double())
+    assert torch.equal(cuda_split.strong_correction_fused_plain(tp, tm, idx_r, rows), combined)
+    if form == "square":
+        split_force = cuda_split.pairwise_accel_split(tp, tm, idx, mask)
+    else:
+        split_force = cuda_split.pairwise_accel_split_rows(tp, rows, tm, idx_r,
+                                                           mask[r0:].contiguous())
+    assert torch.equal(split_force, combined + a32_r.double())
+
+
+@pytest.mark.parametrize("case, k", [("hierarchy", 6), ("cloud64", 8)])
+def test_split_rows_match_pallas(case, k):
+    """The rows forms against the JAX package's, from one strong set: the
+    correction against ``_strong_correction_fast(interpret=True, rows=)``,
+    <= 1e-14 of max |c|; ``pairwise_accel_split_rows`` against
+    ``pairwise_accel_split_rows``, 1e-6 of max |a|, and inside the mode's
+    envelopes against native f64 (2e-9 per body on the hierarchy, 4e-7 on
+    the cloud)."""
+    pos, mu = INPUTS[case]()
+    r0 = len(pos) // 2
+    (jidx, jmask), (idx, mask) = _strong_set(pos, mu, k)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    jrows = jnp.asarray(pos[r0:])
+    corr = cuda_split._strong_correction_fast(tp, tm, idx[r0:], rows=tp[r0:]).numpy()
+    ref = jp._strong_correction_fast(jnp.asarray(pos), jnp.asarray(mu), jidx[r0:],
+                                     interpret=True, rows=jrows)
+    assert _rel(corr, ref) <= STRONG_VS_PALLAS
+    port = cuda_split.pairwise_accel_split_rows(tp, tp[r0:], tm, idx[r0:].contiguous(),
+                                                mask[r0:].contiguous())
+    ref = jp.pairwise_accel_split_rows(jnp.asarray(pos), jrows, jnp.asarray(mu), jidx[r0:],
+                                       jmask[r0:], **TILES)
+    assert _rel(port, ref) <= F32_VS_PALLAS
+    envelope = {"hierarchy": 2e-9, "cloud64": 4e-7}[case]
+    assert _rel_rows(port, _dense_f64(pos, mu)[r0:]).max() < envelope
 
 
 # -- the split mode, composed ------------------------------------------------
@@ -643,6 +756,82 @@ def test_kernel7_launch_takes_its_splits_from_the_sources(n, monkeypatch):
     assert [c[1] for c in calls[1:]] == [n, max(1, n // 3), 1]
 
 
+@pytest.mark.parametrize("n", [1, 31, 129, 1000, 4096, 4999])
+def test_kernel5_launch_takes_its_geometry_from_the_sources(n, monkeypatch):
+    """Kernel 5 launches on the warp-tiled loop's geometry of N, with the
+    stream's counter buffer (one zeroed counter a 128-receiver group) and a
+    (blocks, N, 3) scratch, once a call."""
+    from contextlib import contextmanager
+
+    calls = []
+
+    class FakeLib:
+        def eet_accel_f32(self, *args):
+            calls.append(args)
+            return 0
+
+    @contextmanager
+    def on_device(dev):
+        yield 0
+
+    monkeypatch.setattr(cuda_f32._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(cuda_f32, "on_device", on_device)
+    monkeypatch.setattr(cuda_nbody, "_PAIR_COUNTERS", {})
+    p32, m32 = _f32(*_cloud(n, 5))
+    before = cuda_f32.pairwise_accel_f32.launches
+    cuda_f32._unmasked(p32, m32)
+    assert cuda_f32.pairwise_accel_f32.launches == before + 1
+    (args,) = calls
+    assert args[5:9] == (n, *cuda_nbody._f32_pair_geometry(n), 0)
+    assert args[:2] == (p32.data_ptr(), m32.data_ptr())
+    counters = cuda_nbody._PAIR_COUNTERS[(None, 0)]
+    assert args[3] == counters.data_ptr()
+    assert counters.numel() >= -(-n // cuda_nbody.F32_PAIR_GROUP) and not counters.any()
+
+
+@pytest.mark.parametrize("form", ["square", "rows", "rows_no_tail"])
+def test_kernel8_fused_launch_arguments(form, monkeypatch):
+    """Kernel 8's production form hands the kernel the f64 sources, the
+    receivers (the sources themselves in the square form), mu, idx, kernel
+    7's weak tail (or a null pointer) and N, NL, K; it counts on
+    strong_correction_pair.launches."""
+    from contextlib import contextmanager
+
+    calls = []
+
+    class FakeLib:
+        def eet_strong_corr_f64(self, *args):
+            calls.append(args)
+            return 0
+
+    @contextmanager
+    def on_device(dev):
+        yield 0
+
+    monkeypatch.setattr(cuda_split._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(cuda_split, "on_device", on_device)
+    pos, mu = _cloud(32, 3)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=5)
+    r0 = 0 if form == "square" else 20
+    rows = None if form == "square" else tp[r0:]
+    idx_r = idx[r0:].contiguous()
+    a32 = None if form == "rows_no_tail" else torch.zeros((32 - r0, 3))
+    before = cuda_split.strong_correction_pair.launches
+    out = cuda_split._fused(tp, tm, idx_r, rows, a32)
+    assert cuda_split.strong_correction_pair.launches == before + 1
+    assert out.dtype == torch.float64 and out.shape == (32 - r0, 3)
+    (args,) = calls
+    assert args[:4] == (tp.data_ptr(), (tp if rows is None else rows).data_ptr(), tm.data_ptr(),
+                        idx_r.data_ptr())
+    assert args[4] == (None if a32 is None else a32.data_ptr())
+    assert args[5:10] == (out.data_ptr(), 32, 32 - r0, 5, 0)
+    with pytest.raises(TypeError):
+        cuda_split._fused(tp.float(), tm, idx_r, rows, a32)
+    with pytest.raises(ValueError):
+        cuda_split._fused(tp, tm, idx[:8].contiguous(), None, None)
+
+
 def _meta_calls():
     pos, mu = _cloud(8, 6)
     p32, m32 = (t.to("meta") for t in _f32(pos, mu))
@@ -657,11 +846,13 @@ def _meta_calls():
         "mixed": lambda: cuda_mixed.pairwise_accel_mixed(ph, ph, m32),
         "strong_corr": lambda: cuda_split.strong_correction_pair(p32, p32, p32, p32, mh, mh, idx),
         "strong_corr_dd": lambda: cuda_split.strong_correction_dd(p32.double(), mh.double(), idx),
+        "strong_corr_fused": lambda: cuda_split.strong_correction_fused(p32.double(), mh.double(),
+                                                                        idx, a32=p32),
     }
 
 
 @pytest.mark.parametrize("name", ["f32", "f32_masked", "f32_masked_rows", "mixed",
-                                  "strong_corr", "strong_corr_dd"])
+                                  "strong_corr", "strong_corr_dd", "strong_corr_fused"])
 def test_wrappers_reject_unsupported_device(name):
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[name]()
