@@ -45,7 +45,12 @@ them:
   28);
 * kernel 11 redesigned for the card: kernel 11-f64, a whole native-f64
   generation chunk in one block, against its plain version on three scenes
-  and at its cap of 256 bodies (phase 29; its main path is phase 7).
+  and at its cap of 256 bodies (phase 29; its main path is phase 7);
+* kernels 9 and 4 redesigned for the card: kernel 9 on kernel 8's lane
+  loop, both of its entries bitwise to their plain versions (K up to 200)
+  and its f64 entry to the ``corr="dd"`` route it replaced, that rung four
+  launches an evaluation (phase 19); kernel 4 also bitwise at ragged M and
+  on Stormer13 (phase 9).
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; the line before the last is the
@@ -259,12 +264,13 @@ def _cluster(n, seed=0):
     return pos, vel, mu
 
 
-def ladder_loops(p64, m64) -> dict:
+def ladder_loops(p64, m64, dd: bool = False) -> dict:
     """Path C: the force-mode ladder's evaluation loops as ``bench.py:438-604``
     drives them, each adding 1e-30 of the force to the state.  ``p64`` (N, 3)
     f64 positions and ``m64`` (N,) f64 mu on the card.  Returns {mode: (loop,
     start state, kernel names)}, where ``loop(state, evals)`` runs ``evals``
-    force evaluations and returns the state."""
+    force evaluations and returns the state.  ``dd`` adds the split rung with
+    ``corr="dd"`` (kernel 9 in place of kernel 8) as "split_dd"."""
     from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_mixed, cuda_nbody, cuda_split
     from ephemeris_explorer_tpu_torch.ops import split
 
@@ -281,16 +287,21 @@ def ladder_loops(p64, m64) -> dict:
             c = ((c[0] + a.t() * 1e-30).contiguous(), c[1])
         return c
 
-    def split_loop(p, evals):     # bench_split's: the strong set refreshed once per chunk
-        idx = split.strong_pair_indices(p, m64, k=STRONG_K)
-        mask = split.strong_pair_mask(idx, p.shape[0])
-        for _ in range(evals):
-            p = p + cuda_split.pairwise_accel_split(p, m64, idx, mask) * 1e-30
-        return p
+    def split_loop(corr):         # bench_split's: the strong set refreshed once per chunk
+        def loop(p, evals):
+            idx = split.strong_pair_indices(p, m64, k=STRONG_K)
+            mask = split.strong_pair_mask(idx, p.shape[0])
+            for _ in range(evals):
+                p = p + cuda_split.pairwise_accel_split(p, m64, idx, mask, corr=corr) * 1e-30
+            return p
+        return loop
 
-    return {"f32": (f32_loop, p64.float(), ("accel_f32",)),
-            "mixed": (mixed_loop, cuda_nbody.split_f64(p64, transpose=True), ("accel_mixed",)),
-            "split": (split_loop, p64, ("accel_f32_masked", "strong_corr"))}
+    loops = {"f32": (f32_loop, p64.float(), ("accel_f32",)),
+             "mixed": (mixed_loop, cuda_nbody.split_f64(p64, transpose=True), ("accel_mixed",)),
+             "split": (split_loop("fast"), p64, ("accel_f32_masked", "strong_corr"))}
+    if dd:
+        loops["split_dd"] = (split_loop("dd"), p64, ("accel_f32_masked", "strong_corr_dd"))
+    return loops
 
 
 def _coeff_err(a: dict, b: dict, settings, backward=False) -> float:
@@ -854,7 +865,8 @@ def main(argv=None) -> int:
                               5, 1)
                 gms = graph_ms(lambda: cuda_elm2q.elm2q_update(tab, H, c.ys, c.dd, precise=precise),
                                200)
-                out.append({"input": name, "m": c.ys[0][0].numel(), "precise": precise,
+                m = c.ys[0][0].numel()
+                out.append({"input": name, "m": m, "precise": precise,
                             "bitwise": bitwise, "max_abs_err": diff,
                             "kernel_us": kms * 1e3, "kernel_device_us": gms * 1e3,
                             "plain_us": pms * 1e3})
@@ -862,8 +874,30 @@ def main(argv=None) -> int:
                     b = bound_of(lambda: cuda_elm2q.elm2q_update_plain(*tables, c.ys, c.dd, precise),
                                  [*c.ys, *c.dd, *yk])
                     out[-1]["bound"] = b
+                    out[-1]["bound_share"] = b["bound_ms"] * 1e3 / out[-1]["kernel_device_us"]
                     record["elm2q_update"] = kernel_record(diff, kms, pms, b)
+        # ragged M (3, 99, 4095: no multiple of a block's 32 elements) and another
+        # tableau (Stormer13: order 13, two c_y rows), both modes, bitwise
+        rng = np.random.default_rng(4)
+        ragged = []
+        for tab_name, n in (("QuinlanTremaine12", 1), ("QuinlanTremaine12", 33),
+                            ("QuinlanTremaine12", 1365), ("Stormer13", N_BODIES)):
+            t_ = get(tab_name)
+            order = len(t_.c_y)
+            ys = ex.from_f64_host(rng.normal(size=(order, n, 3)) * 1e8, dev)
+            dd = TwoFloat(*cuda_nbody.split_f64(torch.as_tensor(
+                rng.normal(size=(order, n, 3)) * 1e-6, device=dev)))
+            for precise in (False, True):
+                yk = cuda_elm2q.elm2q_update(t_, H, ys, dd, precise=precise)
+                yp = cuda_elm2q.elm2q_update_plain(*cuda_elm2q._tables(t_, H, precise), ys, dd,
+                                                   precise)
+                check(all(torch.equal(a, b) for a, b in zip(yk, yp)),
+                      f"kernel 4 vs plain on {tab_name} at M = {3 * n} (precise={precise}): "
+                      f"not bitwise")
+                ragged.append({"tableau": tab_name, "m": 3 * n, "precise": precise,
+                               "bitwise": True})
         print(json.dumps({"phase": 9, "kernel": "elm2q_update", "cases": out,
+                          "ragged_and_stormer13": ragged,
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
     # -- phase 10: path B, the N=4096 parity step through kernels 4 and 3 ------
@@ -1448,7 +1482,9 @@ def main(argv=None) -> int:
     if 19 in phases:
         t_phase = time.perf_counter()
         out = []
-        dd_cases = [("hierarchy", *hierarchy(), 6), ("ragged1000", *_cluster(1000, seed=1)[::2], 16)]
+        dd_cases = [("hierarchy", *hierarchy(), 6), ("ragged1000", *_cluster(1000, seed=1)[::2], 16),
+                    ("cloud200_k128", *seeded_cloud(200, 14), 128),
+                    ("cloud256_k200", *seeded_cloud(256, 14), 200)]
         dd_cases += [("cluster4096", *_cluster(N_BODIES)[::2], k) for k in (6, 40, 16)]
         for name, p, m, k in dd_cases:
             tp, tm = dev64(p, m)
@@ -1463,13 +1499,26 @@ def main(argv=None) -> int:
             check(bool(torch.isfinite(kc).all()), f"kernel 9 non-finite on {name}")
             check(bitwise, f"kernel 9 vs plain on {name} (K = {k}): not bitwise, {abs_err}")
             check(vs_f64 <= DD_VS_F64, f"kernel 9 vs the f64 correction on {name}: {vs_f64}")
+            # the f64 entry (kernel 7's weak tail added in the kernel) against
+            # its plain version and the corr="dd" route it replaces, bitwise
+            mask = split.strong_pair_mask(idx, len(p))
+            a32 = cuda_f32.pairwise_accel_f32_masked(tp.float(), tm.float().reshape(1, -1), mask,
+                                                     diag_in_mask=True)
+            fused = cuda_split.strong_correction_dd_fused(tp, tm, idx, a32)
+            check(torch.equal(fused, kc + a32.double())
+                  and torch.equal(fused, cuda_split.strong_correction_dd_fused_plain(tp, tm, idx, a32))
+                  and torch.equal(cuda_split.strong_correction_dd_fused(tp, tm, idx), kc),
+                  f"kernel 9's f64 entry on {name} (K = {k}): not its plain version or the old route")
             case = {"input": name, "n": len(p), "k": k, "bitwise": bitwise, "max_abs_err": abs_err,
-                    "per_body_vs_f64": vs_f64,
+                    "per_body_vs_f64": vs_f64, "f64_entry_is_the_old_route": True,
                     **timed(lambda: cuda_split.strong_correction_dd(tp, tm, idx),
-                            lambda: cuda_split.strong_correction_dd_plain(tp, tm, idx))}
+                            lambda: cuda_split.strong_correction_dd_plain(tp, tm, idx)),
+                    "f64_entry_device_us": graph_ms(
+                        lambda: cuda_split.strong_correction_dd_fused(tp, tm, idx, a32), 20) * 1e3}
             if name == "cluster4096" and k == STRONG_K:
                 case["bound"] = bound_of(lambda: cuda_split.strong_correction_dd_plain(tp, tm, idx),
                                          [tp, tm, idx, kh, kl])
+                case["bound_share"] = case["bound"]["bound_ms"] * 1e3 / case["kernel_device_us"]
                 record["strong_corr_dd"] = kernel_record(
                     abs_err, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
             out.append(case)
@@ -1482,29 +1531,33 @@ def main(argv=None) -> int:
         errs = {c: (cuda_split.pairwise_accel_split(p64, m64, idx, mask, corr=c) - ref).abs().max().item()
                 / ref.abs().max().item() for c in ("dd", "fast", "f64")}
         check(errs["dd"] <= LADDER_BOUNDS["split"], f"split mode (dd) vs f64: {errs['dd']}")
+        # one evaluation is four launches: two casts, kernel 7 and kernel 9's
+        # f64 entry (no eager combine or add)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            cuda_split.pairwise_accel_split(p64, m64, idx, mask, corr="dd")
+            torch.cuda.synchronize()
+        per_eval = sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        check(per_eval == 4, f"split mode (dd): {per_eval} launches an evaluation, expected 4")
 
-        def dd_loop(p, evals):
-            for _ in range(evals):
-                p = p + cuda_split.pairwise_accel_split(p, m64, idx, mask, corr="dd") * 1e-30
-            return p
-
-        dd_loop(p64, 2)
+        dd_loop, start, kernels = ladder_loops(p64, m64, dd=True)["split_dd"]
+        dd_loop(start, 2)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        end = dd_loop(p64, LADDER_EVALS)
+        end = dd_loop(start, LADDER_EVALS)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches_dd = read_counts()
-        check(launches_dd["strong_corr_dd"] == LADDER_EVALS
-              and launches_dd["accel_f32_masked"] == LADDER_EVALS
-              and launches_dd["strong_corr"] == 0, f"split mode (dd) launches {launches_dd}")
+        check(all(launches_dd[k] == LADDER_EVALS for k in kernels)
+              and all(v == 0 for k, v in launches_dd.items() if k not in kernels),
+              f"split mode (dd): launches {launches_dd}, expected {LADDER_EVALS} of {kernels}")
         check(bool(torch.isfinite(end).all()), "split mode (dd) state not finite")
         record.setdefault("strong_corr_dd", {})["launches"] = launches_dd["strong_corr_dd"]
         print(json.dumps({"phase": 19, "kernel": "strong_corr_dd", "cases": out,
                           "split_rel_err_vs_f64": errs, "split_bound": LADDER_BOUNDS["split"],
                           "dd_loop": {"evals": LADDER_EVALS, "launches": launches_dd,
-                                      "path_s": elapsed,
+                                      "launches_per_eval_profiled": per_eval, "path_s": elapsed,
                                       "force_evals_per_s_x_bodies": N_BODIES * LADDER_EVALS / elapsed},
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
@@ -1729,7 +1782,8 @@ def main(argv=None) -> int:
                 check(bitwise and unpacked, f"kernel 4' on {name} (precise={precise}): bitwise "
                                             f"to plain {bitwise}, to the unpacked {unpacked}")
                 case = {"kernel": "elm2q_update_packed", "input": name, "precise": precise,
-                        "shape": list(ys[0].shape), "bitwise": bitwise,
+                        "shape": list(ys[0].shape),
+                        "bitwise": bitwise,
                         "bitwise_to_unpacked": unpacked, "max_abs_err": diff,
                         "kernel_us": cuda_ms(lambda: cuda_elm2q.elm2q_update_packed(
                             tab, H, ys, dd, precise=precise), 200) * 1e3,
@@ -1741,6 +1795,7 @@ def main(argv=None) -> int:
                     case["bound"] = bound_of(
                         lambda: cuda_elm2q.elm2q_update_plain(*tables, ys, dd, precise),
                         [*ys, *dd, *k])
+                    case["bound_share"] = case["bound"]["bound_ms"] * 1e3 / case["kernel_device_us"]
                     record["elm2q_update_packed"] = kernel_record(
                         diff, case["kernel_us"] / 1e3, case["plain_us"] / 1e3, case["bound"])
                 out.append(case)

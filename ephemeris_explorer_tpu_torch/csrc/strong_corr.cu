@@ -1,5 +1,5 @@
 // Kernels 8 and 9: the two-float strong-pair correction of the magnitude-split
-// mode, on its two feeds.
+// mode, on its three feeds.
 //
 // Replaces the TPU kernel ephemeris_explorer_tpu/ops/pallas_nbody.py
 // `_strong_corr_kernel_fast` (reached through `_strong_correction_fast`,
@@ -55,20 +55,21 @@
 //
 // Kernel 9 replaces the TPU kernel `_strong_corr_kernel` (reached through
 // `_strong_correction_df64`, `corr="dd"` of `pairwise_accel_split`, square
-// form only): the same chain and tree on another feed, in its first design
-// (`strong_corr`, one thread a receiver, the leaves walked in series).  The
-// reference differences the f64 positions on the host, d = pos[j] - pos[i]
-// (one correctly rounded f64 subtract), and only then splits d and mu[j]
-// into (hi, lo) f32 as `_split_f64` does (pallas_nbody.py:1164-1168), so a
-// close pair's d keeps ~2^-48 of |d| rather than of |p|.  Here the kernel
-// reads idx and the (N, 3) f64 positions and (N,) f64 mu itself and does the
-// same subtract and splits in registers (__dsub_rn, __double2float_rn),
-// which removes the reference's host-side (N, K, 3) f64 gather, transpose,
-// split and padding.  Its padding entries (d = 0, mu = 0) reach w = +0
-// through the r^2.hi == 0 clamp, so each contributes the exact two-float
-// zero that the kernel adds in their place.  For KP <= 32 its leaf loop is
-// unrolled (a template on log2 KP), so its stack lives in registers; a
-// larger K runs the same code with the stack in local memory.
+// form only): kernel 8's lane loop and epilogues on a third feed
+// (`F64Feed`), so the same latency bounds it.  The reference differences the
+// f64 positions on the host, d = pos[j] - pos[i] (one correctly rounded f64
+// subtract), and only then splits d and mu[j] into (hi, lo) f32 as
+// `_split_f64` does (pallas_nbody.py:1164-1168), so a close pair's d keeps
+// ~2^-48 of |d| rather than of |p|.  Here each lane holds its receiver's f64
+// row and does the same subtract and splits in registers (__dsub_rn,
+// __double2float_rn), which removes the reference's host-side (N, K, 3) f64
+// gather, transpose, split and padding.  Its padding entries (d = 0, mu = 0)
+// would reach w = +0 through the r^2.hi == 0 clamp, so the exact two-float
+// zero the loop adds in their place is theirs too.  Two entries:
+// `eet_strong_corr_dd` writes the raw (hi, lo) pair (`PairOut`), and
+// `eet_strong_corr_dd_f64` the `corr="dd"` split force's f64 sum (`F64Out`:
+// (f64(hi) + f64(lo)) + f64(a32), the route's combine and final add, in its
+// order), so that rung is two casts, kernel 7 and kernel 9.
 
 #include "pairforce.cuh"
 
@@ -168,7 +169,7 @@ __device__ __forceinline__ void pair_term(const Feed& feed, int j, const typenam
   for (int c = 0; c < 3; ++c) out[c] = mul(w, d[c]);
 }
 
-// ---- kernel 8: one leaf a lane ------------------------------------------------
+// ---- kernels 8 and 9: one leaf a lane ------------------------------------------
 
 constexpr int kLaneBlock = 256;
 
@@ -236,7 +237,7 @@ strong_corr_lanes(Feed feed, const int* __restrict__ idx, Out out, int n, int nl
   for (int c = 0; c < 3; ++c) out.write(i, c, bad ? TF{nan, nan} : v[c]);
 }
 
-// Launch kernel 8 on nl receivers: an unrolled instance for KP <= 128, the
+// Launch kernel 8 or 9 on nl receivers: an unrolled instance for KP <= 128, the
 // local-memory one above; returns cudaGetLastError().
 template <class Feed, class Out>
 int launch_lanes(const Feed& feed, const int* idx, const Out& out, int n, int nl, int k,
@@ -263,88 +264,6 @@ int launch_lanes(const Feed& feed, const int* idx, const Out& out, int n, int nl
     default:
       strong_corr_lanes<-1, Feed, Out><<<blocks, kLaneBlock, 0, stream>>>(feed, idx, out, n, nl,
                                                                           k, log_kp);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- kernel 9: one thread a receiver --------------------------------------------
-
-constexpr int kBlock = 64;
-
-// The reference's tree over KP leaves walked in bit-reversed order through a
-// stack (pairforce.cuh's binary counter).  kLogKp >= 0: KP = 2^kLogKp fixed
-// at compile time; kLogKp < 0: log_kp_rt.
-template <int kLogKp, class Feed>
-__global__ void __launch_bounds__(kBlock)
-strong_corr(Feed feed, const int* __restrict__ idx, float* __restrict__ out_hi,
-            float* __restrict__ out_lo, int n, int nl, int k, int log_kp_rt) {
-  using namespace eet;
-  constexpr bool kFixed = kLogKp >= 0;
-  constexpr int kDepth = kFixed ? kLogKp + 1 : 32;
-  const int log_kp = kFixed ? kLogKp : log_kp_rt;
-  const int kp = 1 << log_kp;
-
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= nl) return;
-  const typename Feed::Row row = feed.row(i);
-  const int* my_idx = idx + static_cast<size_t>(i) * k;
-  const int pad = kp - k;
-  bool bad = false;
-
-  TF st[3][kDepth];
-#pragma unroll
-  for (int t = 0; t < kp; ++t) {
-    const int leaf = bit_reverse(t, log_kp);
-    int top = pop_count(t);  // partial sums on the stack before this leaf
-    if (leaf < pad) {
-      for (int c = 0; c < 3; ++c) st[c][top] = TF{0.0f, 0.0f};
-    } else {
-      const int j = my_idx[leaf - pad];
-      const bool in_range = static_cast<unsigned>(j) < static_cast<unsigned>(n);
-      bad = bad || !in_range;
-      TF term[3];
-      pair_term(feed, in_range ? j : 0, row, term);
-      for (int c = 0; c < 3; ++c) st[c][top] = term[c];
-    }
-    for (int m = t + 1; (m & 1) == 0; m >>= 1, --top) {
-      for (int c = 0; c < 3; ++c) st[c][top - 1] = add_sloppy(st[c][top - 1], st[c][top]);
-    }
-  }
-  const float nan = __int_as_float(0x7fc00000);
-  for (int c = 0; c < 3; ++c) {
-    out_hi[i * 3 + c] = bad ? nan : st[c][0].hi;
-    out_lo[i * 3 + c] = bad ? nan : st[c][0].lo;
-  }
-}
-
-template <int kLogKp, class Feed>
-void launch_one(const Feed& feed, const int* idx, float* out_hi, float* out_lo, int n, int nl,
-                int k, int log_kp, cudaStream_t stream) {
-  strong_corr<kLogKp, Feed><<<(nl + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-      feed, idx, out_hi, out_lo, n, nl, k, log_kp);
-}
-
-// An unrolled instance for KP <= 32, the local-memory one above; returns
-// cudaGetLastError().
-template <class Feed>
-int launch(const Feed& feed, const int* idx, float* out_hi, float* out_lo, int n, int nl, int k,
-           cudaStream_t stream) {
-  int log_kp = 0;
-  while ((1 << log_kp) < k) ++log_kp;
-  switch (log_kp) {
-#define EET_CASE(L)                                                        \
-  case L:                                                                  \
-    launch_one<L>(feed, idx, out_hi, out_lo, n, nl, k, L, stream);         \
-    break;
-    EET_CASE(0)
-    EET_CASE(1)
-    EET_CASE(2)
-    EET_CASE(3)
-    EET_CASE(4)
-    EET_CASE(5)
-#undef EET_CASE
-    default:
-      launch_one<-1>(feed, idx, out_hi, out_lo, n, nl, k, log_kp, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -380,7 +299,17 @@ int eet_strong_corr_f64(const double* pos, const double* rows, const double* mu,
 // idx: (N, K) int32 source indices; out_*: (N, 3).  N, K >= 1.
 int eet_strong_corr_dd(const double* pos, const double* mu, const int* idx, float* out_hi,
                        float* out_lo, int n, int k, cudaStream_t stream) {
-  return launch(F64Feed{pos, mu}, idx, out_hi, out_lo, n, n, k, stream);
+  if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lanes(F64Feed{pos, mu}, idx, PairOut{out_hi, out_lo}, n, n, k, stream);
+}
+
+// Kernel 9 with kernel 8's f64 epilogue (the corr="dd" split force).  pos,
+// mu, idx as above; a32: (N, 3) f32 added to the result, or null; out: (N,
+// 3) f64.  N, K >= 1.
+int eet_strong_corr_dd_f64(const double* pos, const double* mu, const int* idx, const float* a32,
+                           double* out, int n, int k, cudaStream_t stream) {
+  if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lanes(F64Feed{pos, mu}, idx, F64Out{a32, out}, n, n, k, stream);
 }
 
 }  // extern "C"

@@ -3,8 +3,11 @@
 Counterpart of ``ephemeris_explorer_tpu.ops.pallas_elm2.elm2q_update`` (TPU
 kernel ``_update_kernel``) in both of its modes, and of
 ``elm2_update_coeffs_precise``.  The CUDA source is ``csrc/elm2q_update.cu``;
-its header note says what bounds it on an H100 and how the design answers
-that.
+its header note says what bounds it on an H100 (the latency of the serial
+chains of expansion adds that the two left-to-right folds carry) and how
+the design answers that: a block of four warps takes 32 elements, all
+four form the beta and alpha terms, then warp 0 folds the beta sum and
+warp 2 the alpha sum side by side.
 
 :func:`elm2q_update` and its packed entry point :func:`elm2q_update_packed`
 (``elm2q_update_packed``, the rings stored (ORDER, SUB, M/SUB)) take the
@@ -101,12 +104,18 @@ def elm2q_update_plain(coef: np.ndarray, c_y: np.ndarray, nonzero, ys: tuple, dd
 def _update(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool):
     """(y_{n+1} limbs, launched): the plain version on CPU tensors, kernel 4
     on CUDA tensors of any trailing shape, flattened to M elements."""
-    coef, c_y, nonzero = _tables(tab, h, precise)
     dev = ys[0].device
     if dev.type == "cpu":
-        return elm2q_update_plain(coef, c_y, nonzero, ys, dd, precise), False
+        return elm2q_update_plain(*_tables(tab, h, precise), ys, dd, precise), False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    return _launch(tab, h, ys, dd, precise)
+
+
+def _launch(tab, h: float, ys: tuple, dd: TwoFloat, precise: bool):
+    """Kernel 4 on CUDA tensors: (y_{n+1} limbs, launched)."""
+    coef, c_y, nonzero = _tables(tab, h, precise)
+    dev = ys[0].device
     shape = tuple(ys[0].shape)
     order, m = shape[0], math.prod(shape[1:])
     if order != len(tab.c_y):

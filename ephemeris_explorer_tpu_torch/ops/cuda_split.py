@@ -21,12 +21,17 @@ into (hi, lo) f32 limbs in registers, and writes the f64 sum with kernel
 takes its plain PyTorch version (:func:`strong_correction_fused_plain`,
 :func:`strong_correction_pair_plain`) only for CPU tensors; on CUDA tensors
 it launches the kernel or raises.  ``strong_correction_pair.launches``
-counts both forms' launches.  Kernel 9 (:func:`strong_correction_dd`, plain
-version :func:`strong_correction_dd_plain`, counter
-``strong_correction_dd.launches``) is the same chain and tree on the
-f64-differenced feed, in the same source file: it gathers the f64 positions
-itself, differences them in f64 and splits the difference and mu in
-registers.
+counts both forms' launches.  Kernel 9 is the same lane loop, chain and
+tree on the f64-differenced feed, in the same source file, so the same
+latency bounds it: each lane holds its receiver's f64 row, differences
+the gathered f64 source in f64 and splits the difference and mu in
+registers.  It has kernel 8's two epilogues:
+:func:`strong_correction_dd` returns the raw (hi, lo) pair, and
+:func:`strong_correction_dd_fused` the f64 sum with kernel 7's weak tail
+added, so ``corr="dd"`` is two casts, kernel 7 and kernel 9.  Their plain
+versions are :func:`strong_correction_dd_plain` and
+:func:`strong_correction_dd_fused_plain`; ``strong_correction_dd.launches``
+counts both entries' launches.
 """
 
 from __future__ import annotations
@@ -183,10 +188,7 @@ def strong_correction_dd(pos, mu, idx):
         return strong_correction_dd_plain(pos, mu, idx)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n, k = idx.shape
-    _check_input("pos", pos, (n, 3), dev, dtype=torch.float64)
-    _check_input("mu", mu, (n,), dev, dtype=torch.float64)
-    _check_input("idx", idx, (n, k), dev, dtype=torch.int32)
+    n, k = _dd_inputs(pos, mu, idx, None)
     if n == 0 or k == 0:
         z = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         return z, z.clone()
@@ -203,14 +205,70 @@ def strong_correction_dd(pos, mu, idx):
 strong_correction_dd.launches = 0
 
 
-def _strong_correction_df64(pos, mu, idx):
+def _dd_inputs(pos, mu, idx, a32):
+    """Check kernel 9's CUDA inputs; returns (N, K)."""
+    dev = pos.device
+    n, k = idx.shape
+    _check_input("pos", pos, (n, 3), dev, dtype=torch.float64)
+    _check_input("mu", mu, (n,), dev, dtype=torch.float64)
+    _check_input("idx", idx, (n, k), dev, dtype=torch.int32)
+    if a32 is not None:
+        _check_input("a32", a32, (n, 3), dev)
+    return n, k
+
+
+def strong_correction_dd_fused_plain(pos, mu, idx, a32=None):
+    """Plain PyTorch version of kernel 9's f64 entry, on any device: pos
+    (N, 3) f64, mu (N,) f64, idx (N, K) int32, a32 (N, 3) f32 or None ->
+    (N, 3) f64.  :func:`strong_correction_dd_plain`, then
+    :func:`_f64_sum`: the ``corr="dd"`` route's combine and final add."""
+    return _f64_sum(*strong_correction_dd_plain(pos, mu, idx), a32)
+
+
+def strong_correction_dd_fused(pos, mu, idx, a32=None):
+    """Kernel 9 with kernel 8's f64 epilogue: the correction of
+    :func:`strong_correction_dd` written as (N, 3) f64, f64(hi) + f64(lo),
+    with kernel 7's f32 weak tail ``a32`` added when it is given, as
+    :func:`strong_correction_dd_fused_plain` describes.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel, which counts on
+    ``strong_correction_dd.launches``.  An index outside [0, N) raises
+    IndexError in the plain version and gives NaN for that receiver in the
+    kernel."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return strong_correction_dd_fused_plain(pos, mu, idx, a32)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _dd_fused(pos, mu, idx, a32)
+
+
+def _dd_fused(pos, mu, idx, a32):
+    """Kernel 9's f64 entry on CUDA tensors."""
+    dev = pos.device
+    n, k = _dd_inputs(pos, mu, idx, a32)
+    if n == 0 or k == 0:
+        z = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        return _f64_sum(z, z, a32)
+    out = torch.empty((n, 3), dtype=torch.float64, device=dev)
+    lib = _build.library()
+    with on_device(dev) as stream:
+        err = lib.eet_strong_corr_dd_f64(pos.data_ptr(), mu.data_ptr(), idx.data_ptr(),
+                                         None if a32 is None else a32.data_ptr(),
+                                         out.data_ptr(), n, k, stream)
+    _build.check(err, "strong_corr_dd_f64")
+    strong_correction_dd.launches += 1
+    return out
+
+
+def _strong_correction_df64(pos, mu, idx, a32=None):
     """The strong-pair correction on the f64-differenced feed in two-float
     (~2^-47; 4e-14 per row on the hierarchy fixture, where the split-limb
     feed of :func:`_strong_correction_fast` gives 1.7e-12): pos (N, 3) f64,
-    mu (N,) f64, idx (N, K) -> (N, 3) in pos's dtype.  Kernel 9."""
-    hi, lo = strong_correction_dd(pos.contiguous(), mu.contiguous(),
-                                  idx.to(torch.int32).contiguous())
-    return combine_f64(hi, lo).to(pos.dtype)
+    mu (N,) f64, idx (N, K) -> (N, 3) in pos's dtype, plus ``a32`` where
+    given.  Kernel 9's f64 entry."""
+    out = strong_correction_dd_fused(pos.contiguous(), mu.contiguous(),
+                                     idx.to(torch.int32).contiguous(), a32)
+    return out.to(pos.dtype)
 
 
 def _f64_sum(hi, lo, a32):
@@ -318,7 +376,8 @@ def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool
       - "fast" (production): the two-float correction, kernel 8, which also
         adds kernel 7's weak tail (four launches in all on the card);
       - "dd": the f64-differenced feed (kernel 9, ~4e-14 on the hierarchy:
-        the accuracy cross-check of "fast");
+        the accuracy cross-check of "fast"), which also adds kernel 7's
+        weak tail (four launches, as "fast");
       - "f64": the native-f64 chain (the cross-check oracle).
     ``exact_f64=True`` is the old spelling of ``corr="f64"``.
     """
@@ -330,8 +389,9 @@ def pairwise_accel_split(pos, mu, idx, mask, corr: str = "fast", exact_f64: bool
                                     mask, diag_in_mask=True)
     if corr == "fast":
         return _strong_correction_fast(pos, mu, idx, a32=a32)
-    correction = _strong_correction_df64 if corr == "dd" else _strong_correction
-    return correction(pos, mu, idx) + a32.to(pos.dtype)
+    if corr == "dd":
+        return _strong_correction_df64(pos, mu, idx, a32=a32)
+    return _strong_correction(pos, mu, idx) + a32.to(pos.dtype)
 
 
 def pairwise_accel_split_rows(pos, rows, mu, idx, mask):

@@ -13,8 +13,9 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   on full_solar_system, after a first chunk that runs the startup;
 * path C: 400 force evaluations of each rung of the force-mode ladder at
   N = 4096 (f32: kernel 5; mixed: kernel 6; split, K = 16: kernels 7 and 8,
-  the strong set built once), as ``chip_smoke.py`` phase 16 runs them, with
-  the launches an evaluation of each rung;
+  the strong set built once), as ``chip_smoke.py`` phase 16 runs them, and
+  of the split rung with ``corr="dd"`` (kernels 7 and 9), as phase 19 runs
+  it, with the launches an evaluation of each rung;
 * path D: one 50-step scan of ``make_fused_ensemble_scan_f`` at E = 16 x
   N = 4096 (kernel 1's ensemble form then kernel 2 each step), as
   ``chip_smoke.py`` phase 20 runs it (``bench.py``'s ensemble16x4096);
@@ -248,7 +249,7 @@ def main(argv=None) -> int:
                                     lambda: prop.step_chunk(144), 144, sync))
     if "C" in paths:
         p64 = torch.as_tensor(pos, dtype=f64, device=dev)
-        for mode, (loop, start, _) in ladder_loops(p64, mu_dev).items():
+        for mode, (loop, start, _) in ladder_loops(p64, mu_dev, dd=True).items():
             results.append(profile_loop(torch, f"path_C_{mode}_eval",
                                         lambda: loop(start, 400), 400, sync))
     if "D" in paths:

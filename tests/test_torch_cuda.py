@@ -150,17 +150,22 @@ def test_kernel3_wrapper_checks_inputs(cuda_device):
     assert cuda_limbs.pairwise_accel_limbs_pair.launches == before
 
 
+def _kernel4_rings(order, n, dev, seed=4):
+    rng = np.random.default_rng(seed)
+    ys = ex.from_f64_host(rng.normal(size=(order, n, 3)) * 1e8, dev)
+    ys = ys[:3] + ((ys[2].double() * 2.0**-25).float(),)  # a nonzero fourth limb
+    dd = TwoFloat(*cuda_nbody.split_f64(torch.tensor(rng.normal(size=(order, n, 3)) * 1e-6,
+                                                     device=dev)))
+    return ys, dd
+
+
 @pytest.mark.parametrize("precise", [False, True])
-@pytest.mark.parametrize("n", [8, 4096])
+@pytest.mark.parametrize("n", [1, 8, 33, 1365, 4096])
 def test_kernel4_matches_plain_on_card(cuda_device, n, precise):
     """Kernel 4 against its plain version in both modes: bitwise (same ops,
-    same order); one launch per call."""
-    rng = np.random.default_rng(4)
-    y = rng.normal(size=(12, n, 3)) * 1e8
-    ys = ex.from_f64_host(y, cuda_device)
-    ys = ys[:3] + ((ys[2].double() * 2.0**-25).float(),)  # a nonzero fourth limb
-    dd = TwoFloat(*cuda_nbody.split_f64(torch.tensor(rng.normal(size=(12, n, 3)) * 1e-6,
-                                                     device=cuda_device)))
+    same order); one launch per call.  M = 3, 99 and 4095 fill no whole
+    block of 32-element tiles."""
+    ys, dd = _kernel4_rings(12, n, cuda_device)
     tab = get(QT12)
     before = cuda_elm2q.elm2q_update.launches
     k = cuda_elm2q.elm2q_update(tab, 600.0, ys, dd, precise=precise)
@@ -168,6 +173,27 @@ def test_kernel4_matches_plain_on_card(cuda_device, n, precise):
     p = cuda_elm2q.elm2q_update_plain(*cuda_elm2q._tables(tab, 600.0, precise), ys, dd, precise)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("n", [33, 4096])
+def test_kernel4_stormer13_on_card(cuda_device, n, precise):
+    """Kernel 4 on Stormer13 (order 13; two nonzero c_y rows and thirteen
+    c_dy rows, another pattern than QT12's) against its plain version,
+    bitwise, in both modes; and its packed entry point on a (13, 8, 3N/8)
+    ring bitwise to the flat one."""
+    ys, dd = _kernel4_rings(13, n, cuda_device, seed=5)
+    tab = get("Stormer13")
+    k = cuda_elm2q.elm2q_update(tab, 600.0, ys, dd, precise=precise)
+    p = cuda_elm2q.elm2q_update_plain(*cuda_elm2q._tables(tab, 600.0, precise), ys, dd, precise)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if n % 8 == 0:
+        packed = cuda_elm2q.elm2q_update_packed(
+            tab, 600.0, tuple(l.reshape(13, 8, -1) for l in ys),
+            TwoFloat(dd.hi.reshape(13, 8, -1), dd.lo.reshape(13, 8, -1)), precise=precise)
+        for a, b in zip(packed, k):
+            assert torch.equal(a, b.reshape(8, -1))
 
 
 def test_extended3_generation_on_card(cuda_device):
@@ -210,7 +236,6 @@ def test_extended3_generation_on_card(cuda_device):
 # -- the force-mode ladder (kernels 5-8) --------------------------------------
 
 F32_VS_PLAIN = 1e-6       # kernels 5-7, of max |a|: f32 sums in another order
-STRONG_VS_PLAIN = 1e-14   # kernel 9, of max |c|: same tree, rsqrt seeds may differ
 
 
 def _hierarchy(n=16, seed=7):
@@ -504,7 +529,8 @@ def test_forcemode_wrappers_check_inputs(cuda_device):
     idx = torch.zeros((16, 2), dtype=torch.int32, device=cuda_device)
     mh = m32.reshape(-1).contiguous()
     counters = (cuda_f32.pairwise_accel_f32, cuda_f32.pairwise_accel_f32_masked,
-                cuda_mixed.pairwise_accel_mixed, cuda_split.strong_correction_pair)
+                cuda_mixed.pairwise_accel_mixed, cuda_split.strong_correction_pair,
+                cuda_split.strong_correction_dd)
     before = [f.launches for f in counters]
     with pytest.raises(TypeError):
         cuda_f32.pairwise_accel_f32(p32.double(), m32)
@@ -526,6 +552,12 @@ def test_forcemode_wrappers_check_inputs(cuda_device):
         cuda_split.strong_correction_fused(p32.double(), mh.double(), idx[:8].contiguous())
     with pytest.raises(TypeError):
         cuda_split.strong_correction_fused(p32.double(), mh.double(), idx, a32=p32.double())
+    with pytest.raises(TypeError):
+        cuda_split.strong_correction_dd_fused(p32, mh.double(), idx)
+    with pytest.raises(TypeError):
+        cuda_split.strong_correction_dd_fused(p32.double(), mh.double(), idx, p32.double())
+    with pytest.raises(ValueError):
+        cuda_split.strong_correction_dd_fused(p32.double(), mh.double(), idx[:8].contiguous())
     assert [f.launches for f in counters] == before
 
 
@@ -579,39 +611,77 @@ def test_kernel1_and_kernel3_rows_on_card(cuda_device, n):
             assert torch.equal(g, s[r0:r0 + nl])
 
 
-@pytest.mark.parametrize("n, k", [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40)])
+KERNEL9_CASES = [(16, 6), (32, 16), (1000, 16), (4096, 16), (64, 40), (200, 128), (256, 200)]
+
+
+@pytest.mark.parametrize("n, k", KERNEL9_CASES)
 def test_kernel9_matches_plain_on_card(cuda_device, n, k):
     """Kernel 9 against its plain version: bitwise, as kernel 8 (same feed
-    arithmetic, same chain and tree); within 3e-13 per body of the f64
-    correction on the hierarchy."""
-    pos, mu = _hierarchy() if n == 16 else _cloud(n, 14)
-    tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
-    idx = split.strong_pair_indices(tp, tm, k=k)
+    arithmetic, same chain and tree; K = 128 is the largest unrolled
+    instance, K = 200 the runtime-depth one); within 3e-13 per body of the
+    f64 correction on the hierarchy."""
+    tp, tm, idx = _kernel8_inputs(n, k, cuda_device)
     before = cuda_split.strong_correction_dd.launches
     kh, kl = cuda_split.strong_correction_dd(tp, tm, idx)
     assert cuda_split.strong_correction_dd.launches == before + 1
     rh, rl = cuda_split.strong_correction_dd_plain(tp, tm, idx)
-    kc, rc = cuda_nbody.combine_f64(kh, kl), cuda_nbody.combine_f64(rh, rl)
-    assert (kc - rc).abs().max() <= STRONG_VS_PLAIN * rc.abs().max()
+    assert torch.isfinite(kh).all()
+    assert torch.equal(kh, rh) and torch.equal(kl, rl)
     if n == 16:
+        kc = cuda_nbody.combine_f64(kh, kl)
         assert _rel_rows(kc, split._strong_correction(tp, tm, idx)) < 3e-13
+
+
+@pytest.mark.parametrize("n, k", KERNEL9_CASES)
+def test_kernel9_fused_is_the_old_dd_route_on_card(cuda_device, n, k):
+    """Kernel 9's f64 entry (kernel 8's f64 epilogue: the f64 sum with kernel
+    7's a32 added) equals its plain version and the corr="dd" route it
+    replaces bitwise, combine_f64 of the raw pair plus a32 in f64, with and
+    without a32; one launch each; pairwise_accel_split(corr="dd") is four
+    launches (two casts, kernel 7 and kernel 9)."""
+    tp, tm, idx = _kernel8_inputs(n, k, cuda_device)
+    mask = split.strong_pair_mask(idx, n)
+    a32 = cuda_f32.pairwise_accel_f32_masked(tp.float(), tm.float().reshape(1, -1), mask,
+                                             diag_in_mask=True)
+    combined = cuda_nbody.combine_f64(*cuda_split.strong_correction_dd(tp, tm, idx))
+    for tail in (a32, None):
+        before = cuda_split.strong_correction_dd.launches
+        got = cuda_split.strong_correction_dd_fused(tp, tm, idx, tail)
+        assert cuda_split.strong_correction_dd.launches == before + 1
+        want = combined if tail is None else combined + tail.double()
+        assert got.dtype == torch.float64 and torch.equal(got, want)
+        assert torch.equal(cuda_split.strong_correction_dd_fused_plain(tp, tm, idx, tail), got)
+    assert torch.equal(cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="dd"),
+                       combined + a32.double())
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="dd")
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert launches == 4, launches
 
 
 def test_kernel9_out_of_range_index_gives_nan(cuda_device):
     """Kernel 8's rule: an index outside [0, N) gives NaN for its receiver
-    and leaves every other receiver bitwise."""
+    and leaves every other receiver bitwise; in both entries of kernel 9."""
     pos, mu = _cloud(64, 15)
     tp, tm = torch.tensor(pos, device=cuda_device), torch.tensor(mu, device=cuda_device)
     idx = split.strong_pair_indices(tp, tm, k=8)
-    good = cuda_split.strong_correction_dd(tp, tm, idx)
     bad_idx = idx.clone()
     bad_idx[3, 5] = 64
     bad_idx[40, 0] = -1
-    bad = cuda_split.strong_correction_dd(tp, tm, bad_idx)
+    a32 = torch.ones((64, 3), dtype=torch.float32, device=cuda_device)
+    pairs = (
+        (cuda_split.strong_correction_dd(tp, tm, idx),
+         cuda_split.strong_correction_dd(tp, tm, bad_idx)),
+        ((cuda_split.strong_correction_dd_fused(tp, tm, idx, a32),),
+         (cuda_split.strong_correction_dd_fused(tp, tm, bad_idx, a32),)),
+    )
     keep = torch.ones(64, dtype=torch.bool, device=cuda_device)
     keep[[3, 40]] = False
-    for g, b in zip(good, bad):
-        assert b[[3, 40]].isnan().all() and torch.equal(b[keep], g[keep])
+    for good, bad in pairs:
+        for g, b in zip(good, bad):
+            assert b[[3, 40]].isnan().all() and torch.equal(b[keep], g[keep])
 
 
 def test_one_rank_nccl_mesh_on_card(cuda_device, tmp_path):

@@ -115,6 +115,65 @@ def test_kernel4_plain_matches_pallas(n, seed, precise):
     assert np.abs(deep).max() <= 2.0**-64 * np.abs(np.asarray(ref[0])).max()
 
 
+@pytest.mark.parametrize("precise", [False, True])
+def test_kernel4_plain_matches_pallas_stormer13(precise):
+    """Kernel 4's plain version on Stormer13 (order 13, two nonzero c_y rows,
+    thirteen nonzero c_dy rows: another pattern of rows than QT12's) against
+    elm2q_update(interpret=True): the two leading limbs bitwise and within
+    2^-64 of max|y| in value, the bar of test_kernel4_plain_matches_pallas."""
+    limbs, (ah, al) = _rings(33, 2, order=13)
+    ref = jelm2.elm2q_update(jget("Stormer13"), H, tuple(jnp.asarray(l) for l in limbs),
+                             JTwoFloat(jnp.asarray(ah), jnp.asarray(al)),
+                             interpret=True, precise=precise)
+    out = cuda_elm2q.elm2q_update(get("Stormer13"), H, interop.limbs_from(limbs),
+                                  interop.pair_from((ah, al)), precise=precise)
+    for a, b in zip(out[:2], ref[:2]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    deep = sum(a.numpy().astype(np.float64) - np.asarray(b, np.float64)
+               for a, b in zip(out[2:], ref[2:]))
+    assert np.abs(deep).max() <= 2.0**-64 * np.abs(np.asarray(ref[0])).max()
+
+
+@pytest.mark.parametrize("name", [QT12, "Stormer13"])
+@pytest.mark.parametrize("n", [1, 33, 1365, 4096])
+def test_kernel4_launch_arguments(n, name, monkeypatch):
+    """Kernel 4's wrapper hands the kernel the tableau's tables (the bit
+    mask of its nonzero c_dy rows), the ring and output pointers and M,
+    once a call in either mode; M = 3, 99 and 4095 fill no whole 32-element
+    block."""
+    from contextlib import contextmanager
+
+    calls = []
+
+    class FakeLib:
+        def eet_elm2q_update(self, *args):
+            calls.append(args)
+            return 0
+
+    @contextmanager
+    def on_device(dev):
+        yield 0
+
+    monkeypatch.setattr(cuda_elm2q._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(cuda_elm2q, "on_device", on_device)
+    tab = get(name)
+    limbs, (ah, al) = _rings(n, 3, order=len(tab.c_y))
+    ys, dd = interop.limbs_from(limbs), interop.pair_from((ah, al))
+    for precise in (False, True):
+        coef, c_y, nonzero = cuda_elm2q._tables(tab, H, precise)
+        assert (len(nonzero), int(np.count_nonzero(c_y))) == {QT12: (11, 7),
+                                                              "Stormer13": (13, 2)}[name]
+        out, launched = cuda_elm2q._launch(tab, H, ys, dd, precise)
+        assert launched and len(out) == 4 and all(o.shape == (n, 3) for o in out)
+        args = calls[-1]
+        assert args[:5] == (coef.ctypes.data, int(precise), c_y.ctypes.data, len(tab.c_y),
+                            sum(1 << j for j in nonzero))
+        assert args[5:15] == (*(l.data_ptr() for l in ys), dd.hi.data_ptr(), dd.lo.data_ptr(),
+                              *(o.data_ptr() for o in out))
+        assert args[15:] == (3 * n, 0)
+    assert len(calls) == 2
+
+
 def _system(n=8, seed=9):
     """test_fused_precise_sums_kernel's cluster."""
     rng = np.random.default_rng(seed)

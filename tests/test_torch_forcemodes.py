@@ -603,6 +603,69 @@ def test_kernel9_plain_rejects_out_of_range_index():
         wrong[2, 1] = bad
         with pytest.raises(IndexError):
             cuda_split.strong_correction_dd(tp, tm, wrong)
+        with pytest.raises(IndexError):
+            cuda_split.strong_correction_dd_fused(tp, tm, wrong)
+
+
+@pytest.mark.parametrize("k", [6, 16, 40])
+@pytest.mark.parametrize("case", ["hierarchy64", "cloud64"])
+def test_kernel9_fused_plain_is_the_old_dd_route(case, k):
+    """Kernel 9's f64 entry (the f64 sum with kernel 7's a32 added) is the
+    ``corr="dd"`` route it replaces, bitwise: combine_f64 of the raw pair
+    in pos's dtype, plus a32 in pos's dtype; without a32 the combine alone.
+    So ``pairwise_accel_split(corr="dd")`` keeps its bits."""
+    tp, tm, idx, mask, a32 = _fused_case(case, k)
+    combined = cuda_nbody.combine_f64(*cuda_split.strong_correction_dd_plain(tp, tm, idx))
+    old = combined.to(tp.dtype) + a32.to(tp.dtype)
+    got = cuda_split.strong_correction_dd_fused_plain(tp, tm, idx, a32)
+    assert got.dtype == torch.float64 and got.shape == (64, 3)
+    assert torch.equal(got, old)
+    assert torch.equal(cuda_split.strong_correction_dd_fused_plain(tp, tm, idx), combined)
+    before = cuda_split.strong_correction_dd.launches
+    assert torch.equal(cuda_split.strong_correction_dd_fused(tp, tm, idx, a32), old)
+    assert torch.equal(cuda_split.pairwise_accel_split(tp, tm, idx, mask, corr="dd"), old)
+    assert torch.equal(cuda_split._strong_correction_df64(tp, tm, idx), combined)
+    assert cuda_split.strong_correction_dd.launches == before  # CPU: plain versions
+
+
+@pytest.mark.parametrize("tail", [True, False])
+def test_kernel9_fused_launch_arguments(tail, monkeypatch):
+    """Kernel 9's f64 entry hands the kernel the f64 positions, mu, idx,
+    kernel 7's weak tail (or a null pointer), the f64 output and N, K; it
+    counts on strong_correction_dd.launches."""
+    from contextlib import contextmanager
+
+    calls = []
+
+    class FakeLib:
+        def eet_strong_corr_dd_f64(self, *args):
+            calls.append(args)
+            return 0
+
+    @contextmanager
+    def on_device(dev):
+        yield 0
+
+    monkeypatch.setattr(cuda_split._build, "library", lambda: FakeLib())
+    monkeypatch.setattr(cuda_split, "on_device", on_device)
+    pos, mu = _cloud(32, 3)
+    tp, tm = torch.tensor(pos), torch.tensor(mu)
+    idx = split.strong_pair_indices(tp, tm, k=5)
+    a32 = torch.zeros((32, 3)) if tail else None
+    before = cuda_split.strong_correction_dd.launches
+    out = cuda_split._dd_fused(tp, tm, idx, a32)
+    assert cuda_split.strong_correction_dd.launches == before + 1
+    assert out.dtype == torch.float64 and out.shape == (32, 3)
+    (args,) = calls
+    assert args == (tp.data_ptr(), tm.data_ptr(), idx.data_ptr(),
+                    None if a32 is None else a32.data_ptr(), out.data_ptr(), 32, 5, 0)
+    with pytest.raises(TypeError):
+        cuda_split._dd_fused(tp.float(), tm, idx, a32)
+    with pytest.raises(TypeError):
+        cuda_split._dd_fused(tp, tm, idx, tp)
+    with pytest.raises(ValueError):
+        cuda_split._dd_fused(tp, tm, idx[:8].contiguous(), None)
+    assert cuda_split.strong_correction_dd.launches == before + 1
 
 
 # -- the strong set -----------------------------------------------------------
@@ -848,11 +911,14 @@ def _meta_calls():
         "strong_corr_dd": lambda: cuda_split.strong_correction_dd(p32.double(), mh.double(), idx),
         "strong_corr_fused": lambda: cuda_split.strong_correction_fused(p32.double(), mh.double(),
                                                                         idx, a32=p32),
+        "strong_corr_dd_fused": lambda: cuda_split.strong_correction_dd_fused(
+            p32.double(), mh.double(), idx, a32=p32),
     }
 
 
 @pytest.mark.parametrize("name", ["f32", "f32_masked", "f32_masked_rows", "mixed",
-                                  "strong_corr", "strong_corr_dd", "strong_corr_fused"])
+                                  "strong_corr", "strong_corr_dd", "strong_corr_fused",
+                                  "strong_corr_dd_fused"])
 def test_wrappers_reject_unsupported_device(name):
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[name]()
