@@ -13,7 +13,8 @@ them:
   N = 4096 in native f64 and through the fused two-float branch with its
   gate patched on (phases 3-6), and a year of the bundled full_solar_system
   scene at ``"f64"`` through kernel 11-f64, one launch a chunk, beside the
-  eager native-f64 loop and against the CPU (phase 7);
+  eager native-f64 loop and against the CPU, then 30 days of it backward
+  through kernel 11-f64 against the CPU (phase 7);
 * the expansion-state engine: kernel 3 (3-limb pair force) and kernel 4
   (4-limb update) against their plain versions (phases 8-9), the N = 4096
   parity step ``elm2_step_qf(precise_sums=True)`` through both (path B,
@@ -45,7 +46,8 @@ them:
   28);
 * kernel 11 redesigned for the card: kernel 11-f64, a whole native-f64
   generation chunk in one block, against its plain version on three scenes
-  and at its cap of 256 bodies (phase 29; its main path is phase 7);
+  and at its cap of 256 bodies, and stepping backward (h < 0) on the three
+  scenes (phase 29; its main path is phase 7);
 * kernels 9 and 4 redesigned for the card: kernel 9 on kernel 8's lane
   loop, both of its entries bitwise to their plain versions (K up to 200)
   and its f64 entry to the ``corr="dd"`` route it replaced, that rung four
@@ -71,11 +73,22 @@ them:
   the CPU port's flight, and the Earth Station coast on both devices
   (phase 30); fleet64, ``bench.py``'s 64 burning ships in one batch of
   ``propagate_ships``, against single-ship runs (phase 31).  Both print the
-  fleet loop's iterations, host syncs and aten ops an iteration.
+  fleet loop's iterations, host syncs and aten ops an iteration;
+* the session layer, a mission planner's session through ``api.Universe``
+  on the card (phase 32): full_solar_system loaded, 440 days generated
+  forward (bitwise to phase 30's coefficients) and 30 backward through
+  kernel 11-f64, the Mars Transfer Ship replanned to the night after its
+  Mars capture burn (bitwise to phase 30's flight up to that epoch), its SOI
+  transitions and apsides (bitwise between the card's pack and the CPU's), an edit of its last burn replanned incrementally (every
+  earlier knot and event kept bitwise), a background extension paused and
+  resumed under a reader thread (bit-stable reads), and the interpolation
+  audit re-integrating the span through kernel 11-f64; the host time of
+  each step.
 
 Every launch count is set to 0 just before a path is driven and read just
-after.  Each phase prints one line; the line before the last is the
-kernels' JSON record (each form's launches on its path, error against its
+after.  Each phase prints one line; then the run's total seconds; the line
+before the last is the kernels' JSON record (each form's launches on its
+path, kernel 11-f64's also on each path that runs it, error against its
 plain version, times, and the least time the card could take,
 :func:`bound_of`) and the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits nonzero and prints no result.
@@ -91,6 +104,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -103,7 +117,7 @@ FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
 EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
-ALL_PHASES = ",".join(str(p) for p in range(1, 32))
+ALL_PHASES = ",".join(str(p) for p in range(1, 33))
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -204,6 +218,7 @@ GEN_SCENES = ("full_solar_system_2433282.5", "simple_solar_system_2433282.5",
 # chunk its distance from the CPU's eager loop to max(GEN_ENVELOPE x the
 # eager CUDA loop's, GEN_FLOOR max|y|), path F's envelope.
 GEN64_VS_PLAIN = 2.0**-50
+BACK_DAYS = 30.0            # phase 7's backward span of full_solar_system
 GEN64_CAP = 256
 GEN64_TIMED_STEPS = 4096
 # Slice 11: spacecraft.  The mission is tests/test_mission.py's: 440 days of
@@ -234,6 +249,29 @@ FLEET_KNOTS = 8192
 FLEET_RUNS = 3
 FLEET_SINGLES = (0, 1, 31, 63)
 FLEET_VS_SINGLE_KM = 1e-2
+# The Universe session (phase 32), the planner's loop on the card:
+# full_solar_system loaded into an api.Universe, MISSION_EPH_DAYS generated
+# forward (bitwise to phase 30's coefficients), the Mars Transfer Ship
+# replanned to SESSION_UNTIL (its knots bitwise to phase 30's flight up to
+# the last, which the plan end clips: the same function on the same
+# coefficients), then BACK_DAYS generated backward.  SESSION_UNTIL cuts
+# phase 30's 1951-01-01 to the night after the Mars capture burn: it keeps
+# all four burns, the Earth SOI exit and the Mars SOI entry, and drops the
+# five months in Mars orbit that hold 99% of the knots (two more flights of
+# those would take the smoke past 800 s).  The ship is replanned before the
+# backward span lands because the start epoch is then a segment boundary,
+# where the end-inclusive segment rule evaluates the backward segment at
+# tau = 1 and the first step's force moves by the fits' boundary mismatch.
+# The events are scanned on the card's pack and on the CPU's (bitwise); the
+# last burn's acceleration x EDIT_FACTOR is replanned incrementally (every
+# knot and event before the restart bitwise); an EXTEND_DAYS background
+# extension, paused and resumed, races a reader thread (bit-stable reads);
+# the interpolation audit re-integrates the generated span through kernel
+# 11-f64 and must stay within AUDIT_BAR_M.
+SESSION_UNTIL = "1950-07-28 00:00:00"
+EDIT_FACTOR = 1.01
+EXTEND_DAYS = 60.0
+AUDIT_BAR_M = 1000.0
 # aten ops that only make a view or a host scalar: no device launch
 VIEW_OPS = frozenset({"aten::view", "aten::_unsafe_view", "aten::unsqueeze", "aten::squeeze",
                       "aten::select", "aten::slice", "aten::expand", "aten::as_strided",
@@ -455,6 +493,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=ALL_PHASES)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    t_smoke = time.perf_counter()
 
     import torch
 
@@ -974,7 +1013,32 @@ def main(argv=None) -> int:
         env = max(GEN_ENVELOPE * km_e, GEN_FLOOR * y_cpu.abs().max().item())
         check(km_k <= env, f"phase 7 after {steps} steps: kernel 11-f64 {km_k} km from the CPU, "
                            f"> {env} km (eager CUDA {km_e} km)")
+
+        # backward generation through kernel 11-f64 (h < 0), one launch a
+        # chunk, against the CPU's eager loop in sample space (the backward
+        # fit matrices) at the forward year's bar
+        back = port.Duration.from_days(BACK_DAYS)
+        n_chunks_b = -(-round(back.as_seconds() / h) // eph.CHUNK_STEPS)
+        reset_counts()
+        t0 = time.perf_counter()
+        e_back = eph.generate_ephemeris(fss.state, fss.settings, back, direction=-1, device=dev)
+        torch.cuda.synchronize()
+        t_back = time.perf_counter() - t0
+        launches_b = read_counts()
+        check(launches_b["gen_scan_f64"] == n_chunks_b and sum(launches_b.values()) == n_chunks_b,
+              f"phase 7 backward: launches {launches_b}, expected one of kernel 11-f64 per chunk "
+              f"({n_chunks_b})")
+        e_back_cpu = eph.generate_ephemeris(fss.state, fss.settings, back, direction=-1,
+                                            device="cpu")
+        check(all(e_back[n].start_s == e_back_cpu[n].start_s for n in e_back.names),
+              "phase 7 backward: the card's and the CPU's segments start apart")
+        err_b = _coeff_err({n: e_back_cpu[n].coeffs for n in e_back.names},
+                           {n: e_back[n].coeffs for n in e_back.names}, fss.settings,
+                           backward=True)
+        check(err_b <= FSS_BOUND, f"phase 7 backward, CUDA vs CPU: {err_b} > {FSS_BOUND}")
         record.setdefault("gen_scan_f64", {})["launches"] = launches_y["gen_scan_f64"]
+        record["gen_scan_f64"].setdefault("launches_by_phase", {}).update(
+            {"7": launches_y["gen_scan_f64"], "7_backward": launches_b["gen_scan_f64"]})
         print(json.dumps({
             "phase": 7, "scene": "full_solar_system_2433282.5", "n": fss.state.n,
             "sim_days": 365.25, "chunks": n_chunks, "launches": launches_y,
@@ -987,6 +1051,8 @@ def main(argv=None) -> int:
             "ratio_to_eager": km_k / km_e if km_e else None, "envelope_km": env,
             "worst_bodies_km": _worst_bodies(d_k, fss),
             "eager_worst_bodies_km": _worst_bodies(d_e, fss),
+            "backward": {"sim_days": BACK_DAYS, "chunks": n_chunks_b, "launches": launches_b,
+                         "generation_s": t_back, "coeff_err_vs_cpu": err_b, "bound": FSS_BOUND},
             "phase_s": time.perf_counter() - t_phase, "card": smi,
         }))
 
@@ -2445,10 +2511,13 @@ def main(argv=None) -> int:
     if 29 in phases:
         t_phase = time.perf_counter()
         out = []
-        for case in (*GEN_SCENES, GEN64_CAP):
+        # forward on the scenes and at the cap, then backward (h < 0, the
+        # route of backward generation) on the scenes
+        for case, direction in [*((c, 1) for c in (*GEN_SCENES, GEN64_CAP)),
+                                *((c, -1) for c in GEN_SCENES)]:
             if isinstance(case, str):
                 sc = scene.load_scene(ROOT / "systems" / case)
-                h = sc.settings.dt.as_seconds()
+                h = sc.settings.dt.as_seconds() * direction
                 p_np, v_np, m_np = sc.state.positions(), sc.state.velocities(), sc.state.mus()
             else:
                 (p_np, v_np, m_np), h = _cluster(case, seed=6), H
@@ -2465,6 +2534,9 @@ def main(argv=None) -> int:
             ymax = ysp.abs().max().item()
             f_err = (c.ddys - cp.ddys).abs().max().item() / cp.ddys.abs().max().item()
             name = case if isinstance(case, str) else f"cloud{case}"
+            if direction < 0:
+                name += " backward"
+                check(bitwise, f"kernel 11-f64 backward is not bitwise to plain on {name}")
             check(bool(torch.isfinite(ys).all()), f"kernel 11-f64 non-finite on {name}")
             check(abs_err <= GEN64_VS_PLAIN * ymax and f_err <= GEN64_VS_PLAIN,
                   f"kernel 11-f64 vs plain on {name}: {abs_err / ymax} of max|y|, "
@@ -2476,7 +2548,7 @@ def main(argv=None) -> int:
                                                                    GEN_CHECK_STEPS), 1, 1)
             long_ms = cuda_ms(lambda: cuda_gen.elm2_gen_scan_f64(tab, h, c0, m64,
                                                                  GEN64_TIMED_STEPS), 2, 1)
-            case_out = {"input": name, "n": len(m_np), "steps": GEN_CHECK_STEPS,
+            case_out = {"input": name, "n": len(m_np), "h_s": h, "steps": GEN_CHECK_STEPS,
                         "bitwise": bitwise, "max_abs_err": abs_err, "rel_err_vs_plain": abs_err / ymax,
                         "force_rel_err_vs_plain": f_err, "bar": GEN64_VS_PLAIN,
                         "kernel_us": kms * 1e3, "plain_us": pms * 1e3,
@@ -2487,7 +2559,7 @@ def main(argv=None) -> int:
             case_out["bound"] = b
             case_out["bound_us_per_step"] = b["bound_ms"] * 1e3 / GEN_CHECK_STEPS
             case_out["bound_one_sm_us_per_step"] = case_out["bound_us_per_step"] * SMS
-            if case == GEN_SCENES[0]:
+            if case == GEN_SCENES[0] and direction > 0:
                 record.setdefault("gen_scan_f64", {}).update(kernel_record(abs_err, kms, pms, b))
             out.append(case_out)
         print(json.dumps({"phase": 29, "kernel": "gen_scan_f64", "cases": out,
@@ -2513,6 +2585,7 @@ def main(argv=None) -> int:
                 sc_.propagate_batch.syncs)
 
     # -- phase 30: the mission: generation, then the Mars Transfer Ship ---------
+    mission = {}  # phase 30's ephemeris and flight, which phase 32 is held to
     if 30 in phases:
         t_phase = time.perf_counter()
         fss_m = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
@@ -2555,6 +2628,7 @@ def main(argv=None) -> int:
         count_end = port.Epoch.from_offset_seconds(ship.start.as_offset_seconds()
                                                    + MISSION_COUNT_DAYS * 86400.0)
         ops_it = flight_ops(lambda: fly(dev, count_end))
+        mission.update(eph=e_m, traj=traj)
         # the Earth Station coast on both devices
         sem = scene.load_scene(ROOT / "systems" / "sun_earth_moon_2433282.5")
         e_sem = eph.generate_ephemeris(sem.state, sem.settings, port.Duration.from_days(40.0),
@@ -2632,6 +2706,220 @@ def main(argv=None) -> int:
             "phase_s": time.perf_counter() - t_phase, "card": smi,
         }))
 
+    # -- phase 32: the Universe session ------------------------------------------
+    if 32 in phases:
+        from ephemeris_explorer_tpu_torch import api, events
+
+        t_phase = time.perf_counter()
+        host_s = {}
+
+        def timed(step, fn):
+            """fn() with its host time (to a synchronize) under host_s[step]."""
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            host_s[step] = time.perf_counter() - t0
+            return out
+
+        u = timed("load", lambda: api.Universe.load(
+            ROOT / "systems" / "full_solar_system_2433282.5", device=dev))
+        check(u.device.type == "cuda", f"phase 32: the Universe runs on {u.device}")
+        h = u.settings.dt.as_seconds()
+        span = port.Duration.from_days(MISSION_EPH_DAYS)
+        n_fwd = -(-round(span.as_seconds() / h) // eph.CHUNK_STEPS)
+        reset_counts()
+        timed("generate_forward", lambda: u.generate(span))
+        launches_fwd = read_counts()
+        check(launches_fwd["gen_scan_f64"] == n_fwd and sum(launches_fwd.values()) == n_fwd,
+              f"phase 32: forward generation launches {launches_fwd}, expected one of kernel "
+              f"11-f64 per chunk ({n_fwd})")
+        coeffs_same = None
+        if mission:
+            coeffs_same = all(np.array_equal(u.ephemeris[n].coeffs, mission["eph"][n].coeffs)
+                              and u.ephemeris[n].start_s == mission["eph"][n].start_s
+                              for n in u.names)
+            check(coeffs_same, "phase 32: the session's forward coefficients are not phase 30's")
+
+        # the Mars Transfer Ship, replanned to SESSION_UNTIL
+        ship = next(x for x in u.scene.ships if x.name == "Mars Transfer Ship")
+        until = port.Epoch.parse(SESSION_UNTIL)
+        entry = u.spawn_ship(ship, propagate_now=False)
+        u.set_plan_end(ship.name, until, replan=False)
+        reset_counts()
+        traj = timed("replan", lambda: u.replan(ship.name, max_knots=MISSION_KNOTS))
+        launches_replan = read_counts()
+        check(not any(launches_replan.values()), f"phase 32: the replan launched {launches_replan}")
+        check(traj.end_s >= until.as_offset_seconds() - 1.0,
+              f"phase 32: the replan stopped at {port.Epoch.from_offset_seconds(traj.end_s)}")
+        n_knots = len(traj.ts)
+        dist = {}
+        for body, when in MISSION_EPOCHS:
+            t = port.Epoch.parse(when)
+            if t.as_offset_seconds() <= until.as_offset_seconds():
+                dist[f"{body} {when}"] = float(
+                    np.linalg.norm(traj.position(t) - u.ephemeris[body].position(t)))
+        check(len(dist) == 3 and all(d < MISSION_KM for d in dist.values()),
+              f"phase 32: the replanned mission missed a reference epoch: {dist}")
+        knots_same = None
+        if mission:
+            m, k = mission["traj"], n_knots - 1
+            knots_same = bool(k <= len(m.ts) and all(
+                np.array_equal(a[:k], b[:k]) for a, b in
+                zip((traj.ts, traj.pos, traj.vel), (m.ts, m.pos, m.vel))))
+            check(knots_same, f"phase 32: the replan's first {k} knots are not phase 30's")
+
+        # the backward span
+        back = port.Duration.from_days(BACK_DAYS)
+        n_bwd = -(-round(back.as_seconds() / h) // eph.CHUNK_STEPS)
+        reset_counts()
+        timed("generate_backward", lambda: u.extend(back, -1))
+        launches_bwd = read_counts()
+        check(launches_bwd["gen_scan_f64"] == n_bwd and sum(launches_bwd.values()) == n_bwd,
+              f"phase 32: backward generation launches {launches_bwd}, expected {n_bwd}")
+        check(u.ephemeris.start.as_offset_seconds() < u.state.epoch.as_offset_seconds(),
+              "phase 32: the backward span did not land")
+
+        # events: the card's pack and the CPU's, scanned alike
+        coeff_mb = sum(u.ephemeris[n].coeffs.nbytes for n in u.names) / 2**20
+        packed = timed("pack_to_card", lambda: u.ephemeris.pack(dev))
+        timed("mirror_to_host", lambda: events._fetch_host_eph(packed))
+
+        def scan(p):
+            tr = events.soi_transitions(traj, p, u.soi.radii)
+            return tr, events.apsides(traj, p, tr)
+
+        tr, aps = timed("events", lambda: scan(packed))
+        tr_cpu, aps_cpu = scan(u.ephemeris.pack("cpu"))
+        check(tr == tr_cpu and aps == aps_cpu, "phase 32: events on the card's pack differ from "
+                                               "the CPU pack's")
+        names = u.names
+        i_earth, i_mars = u.body_index["Earth"], u.body_index["Mars"]
+        transitions = [(str(port.Epoch.from_offset_seconds(t)), names[b]) for t, b in tr]
+        earth_exit = next((transitions[k + 1] for k, (_, b) in enumerate(tr[:-1])
+                           if b == i_earth), None)
+        mars_entry = next((transitions[k] for k, (_, b) in enumerate(tr) if b == i_mars), None)
+        check(tr and tr[0][1] == i_earth and earth_exit is not None and mars_entry is not None,
+              f"phase 32: no Earth SOI exit and Mars SOI entry in {transitions}")
+
+        def apsis(a):
+            return {"at": str(port.Epoch.from_offset_seconds(a.time)), "body": names[a.body],
+                    "km": a.distance, "periapsis": bool(a.periapsis)}
+
+        by_body = {}
+        for a in aps:
+            by_body[names[a.body]] = by_body.get(names[a.body], 0) + 1
+
+        # edit the last burn; the replan restarts at the last common event
+        last = max(entry.plan.burns.values(), key=lambda b: b.start.as_offset_seconds())
+        old = (traj.ts.copy(), traj.pos.copy(), traj.vel.copy())
+        old_tr, old_aps = list(entry.transitions), list(entry.apsides)
+        u.edit_burn(ship.name, last.id, acceleration=last.acceleration * EDIT_FACTOR,
+                    replan=False)
+        t_restart = entry.plan.restart_epoch(entry.last_timeline, entry.last_method,
+                                             entry.last_params, entry.trajectory, u.body_index)
+        check(t_restart == last.start.as_offset_seconds(),
+              f"phase 32: restart at {t_restart}, not at the edited burn's start")
+        reset_counts()
+        traj2 = timed("replan_incremental", lambda: u.replan(ship.name, max_knots=MISSION_KNOTS))
+        launches_edit = read_counts()
+        check(not any(launches_edit.values()), f"phase 32: the edit's replan launched "
+                                               f"{launches_edit}")
+        n_keep = int(np.count_nonzero(old[0] < t_restart))
+        kept = all(np.array_equal(a[:n_keep], b[:n_keep])
+                   for a, b in zip((traj2.ts, traj2.pos, traj2.vel), old))
+        kept_events = ([e for e in entry.transitions if e[0] < t_restart]
+                       == [e for e in old_tr if e[0] < t_restart]
+                       and [a for a in entry.apsides if a.time < t_restart]
+                       == [a for a in old_aps if a.time < t_restart])
+        check(kept and kept_events, "phase 32: a knot or an event before the restart changed")
+        check(traj2.end_s >= until.as_offset_seconds() - 1.0, "phase 32: the edited plan "
+                                                              "stopped early")
+        t_end = until.as_offset_seconds()
+        mars_km_edited = float(
+            np.linalg.norm(traj2.position(t_end) - u.ephemeris["Mars"].position(t_end)))
+
+        # a background extension, paused and resumed, racing a reader thread
+        at = port.Epoch.from_offset_seconds(u.state.epoch.as_offset_seconds() + 100 * 86400.0)
+        ref = u.positions(at)
+        stop = threading.Event()
+        reads = {"n": 0, "worst_km": 0.0}
+
+        def reader():
+            while not stop.is_set():
+                p = u.positions(at)
+                reads["worst_km"] = max(reads["worst_km"], float(np.abs(p - ref).max()))
+                reads["n"] += 1
+
+        th = threading.Thread(target=reader, daemon=True)
+        end_before = u.ephemeris.end.as_offset_seconds()
+        reset_counts()
+        th.start()
+        t0 = time.perf_counter()
+        task = u.extend(port.Duration.from_days(EXTEND_DAYS), background=True)
+        task.pause()
+        paused = task.paused
+        task.resume()
+        task.join(timeout=600)
+        torch.cuda.synchronize()
+        host_s["extend_background"] = time.perf_counter() - t0
+        stop.set()
+        th.join(timeout=60)
+        launches_ext = read_counts()
+        check(paused and not task.in_progress and task.progress == 1.0 and not th.is_alive(),
+              f"phase 32: the background extension ended at {task.progress}")
+        check(reads["n"] > 0 and reads["worst_km"] == 0.0,
+              f"phase 32: torn read during the extension: {reads}")
+        check(u.ephemeris.end.as_offset_seconds() > end_before, "phase 32: no extension landed")
+        check(launches_ext["gen_scan_f64"] >= 1 and sum(launches_ext.values())
+              == launches_ext["gen_scan_f64"], f"phase 32: the extension launched {launches_ext}")
+
+        # the interpolation audit over the generated span
+        t0_s = u.state.epoch.as_offset_seconds()
+        audit_steps = int((u.ephemeris.end.as_offset_seconds() - t0_s) / h) - tab.order
+        n_audit = -(-audit_steps // eph.CHUNK_STEPS)
+        reset_counts()
+        errs = timed("interpolation_error", lambda: api.interpolation_error(
+            u.ephemeris, u.state, u.settings, device=dev))
+        launches_audit = read_counts()
+        check(launches_audit["gen_scan_f64"] == n_audit
+              and sum(launches_audit.values()) == n_audit,
+              f"phase 32: the audit launched {launches_audit}, expected {n_audit} of kernel 11-f64")
+        worst = max(errs, key=errs.get)
+        check(all(np.isfinite(v) for v in errs.values()) and errs[worst] < AUDIT_BAR_M,
+              f"phase 32: interpolation error {errs[worst]} m on {worst}")
+        record.setdefault("gen_scan_f64", {}).setdefault("launches_by_phase", {})["32"] = sum(
+            x["gen_scan_f64"] for x in (launches_fwd, launches_bwd, launches_ext, launches_audit))
+        print(json.dumps({
+            "phase": 32, "path": "Universe session", "scene": "full_solar_system_2433282.5",
+            "n": u.state.n, "ship": ship.name, "until": SESSION_UNTIL,
+            "forward_days": MISSION_EPH_DAYS, "backward_days": BACK_DAYS,
+            "launches": {"generate_forward": launches_fwd["gen_scan_f64"],
+                         "generate_backward": launches_bwd["gen_scan_f64"],
+                         "extend_background": launches_ext["gen_scan_f64"],
+                         "interpolation_error": launches_audit["gen_scan_f64"],
+                         "replans": sum(launches_replan.values()) + sum(launches_edit.values())},
+            "forward_coeffs_bitwise_to_phase_30": coeffs_same,
+            "knots": n_knots, "knots_but_the_last_bitwise_to_phase_30": knots_same,
+            "distance_km": dist, "bar_km": MISSION_KM,
+            "transitions": transitions, "earth_soi_exit": earth_exit, "mars_soi_entry": mars_entry,
+            "apsides": len(aps), "apsides_by_body": by_body,
+            "apsides_first_last": [apsis(a) for a in (aps[:2] + aps[-2:])],
+            "events_bitwise_card_vs_cpu_pack": True,
+            "coefficients_mb": coeff_mb,
+            "edit": {"burn_start": str(last.start), "factor": EDIT_FACTOR,
+                     "restart": str(port.Epoch.from_offset_seconds(t_restart)),
+                     "knots_kept": n_keep, "knots_reflown": len(traj2.ts) - n_keep,
+                     "knots": len(traj2.ts), "seconds": host_s["replan_incremental"],
+                     "mars_km_at_until": mars_km_edited},
+            "extend": {"days": EXTEND_DAYS, "reads": reads["n"], "worst_read_drift_km":
+                       reads["worst_km"], "progress": task.progress},
+            "interpolation_error_m": {"worst_body": worst, "worst_m": errs[worst],
+                                      "per_body": errs, "bar_m": AUDIT_BAR_M,
+                                      "route": "kernel 11-f64 (gen_scan_f64)",
+                                      "steps": audit_steps, "chunks": n_audit},
+            "host_s": host_s, "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }))
+
     if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
     pallas = "ephemeris_explorer_tpu/ops/pallas_nbody.py"
@@ -2666,12 +2954,16 @@ def main(argv=None) -> int:
             ("gen_scan_f64", "gen_scan_f64.cu", "ephemeris_explorer_tpu/ops/pallas_gen.py:88"),
         )
     ]
+    # kernel 11-f64's launches on each path that runs it (its main path's
+    # are "launches"): phase 7 forward and backward, the session of phase 32
+    kernels[-1]["launches_by_phase"] = record["gen_scan_f64"]["launches_by_phase"]
     # kernels 11 and 11-f64 run one block: bound_ms is over the whole card,
     # the kernel on one SM of SMS
     for k in kernels[-2:]:
         k["bound_one_sm_ms"] = k["bound_ms"] * SMS
         k["note"] = (f"one block on one SM: bound_ms is over the whole card, "
                      f"bound_one_sm_ms = {SMS} x bound_ms")
+    print(json.dumps({"smoke_s": time.perf_counter() - t_smoke, "phases": len(phases)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

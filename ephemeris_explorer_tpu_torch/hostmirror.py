@@ -1,8 +1,8 @@
 """Bounded device->host mirror caches.
 
 Port of ``ephemeris_explorer_tpu.hostmirror`` (backend-free, copied).
-Host-side engines (the numpy event scanner of ``events``, still to be
-ported) need a numpy mirror of a device-resident packed ephemeris.  Fetching it
+Host-side engines (the numpy event scanner of :mod:`.events`) need a numpy
+mirror of a device-resident packed ephemeris.  Fetching it
 costs one device-to-host copy per pack snapshot, so mirrors are cached
 keyed on the identity of the device coefficient buffer; the cache PINS that
 buffer so its id() cannot be recycled while the entry lives, and is bounded

@@ -13,8 +13,8 @@
 Epoch strings parse/serialise via :mod:`..ftime` ("YYYY-MM-DD HH:MM:SS[.mmm]").
 State export mirrors ui/windows/export.rs:222-256.
 
-A copy of ``ephemeris_explorer_tpu.io.scene`` (host code, no JAX) without the
-body-visuals section, which waits for the port of ``rotation.py``.
+A copy of ``ephemeris_explorer_tpu.io.scene`` (host code, no JAX); the body
+visuals build on the port's :mod:`..rotation`.
 """
 
 from __future__ import annotations
@@ -259,3 +259,75 @@ def ship_to_json(ship: Ship) -> str:
     }
     return json.dumps(data, indent=2)
 
+
+# ---------------------------------------------------------------------------
+# Body visuals (physical subset of *.visuals.toml)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BodyVisuals:
+    """The engine-relevant subset of a body's visuals TOML.
+
+    The loader mirrors BodyVisualsLoader's [physical] section
+    (load/solar_system/loaders.rs:46-96): triaxial radii [km] and IAU-style
+    spin parameters (radians / radians-per-day), plus the orbit-plot
+    reference/color as plain data.  Material/texture fields are rendering
+    concerns and ignored here.
+    """
+
+    radii: np.ndarray                        # (3,) km
+    right_ascension: float = 0.0
+    declination: float = 0.0
+    rotation_reference_epoch: Epoch = None
+    rotation_reference: float = 0.0
+    rotation_rate: float = 0.0               # rad/day
+    orbit_reference: str | None = None
+    orbit_color: str | None = None
+
+    def __post_init__(self):
+        if self.rotation_reference_epoch is None:
+            self.rotation_reference_epoch = Epoch.parse("2000-01-01 12:00:00")
+
+    @property
+    def mean_radius(self) -> float:
+        return float(np.mean(self.radii))
+
+    def rotating(self):
+        from ..rotation import Rotating
+
+        return Rotating(
+            right_ascension=self.right_ascension,
+            declination=self.declination,
+            reference_epoch=self.rotation_reference_epoch,
+            reference_rotation=self.rotation_reference,
+            rotation_rate=self.rotation_rate,
+        )
+
+
+def load_visuals(path: str | Path) -> BodyVisuals:
+    import tomllib
+
+    data = tomllib.loads(Path(path).read_text())
+    phys = data.get("physical", {})
+    orbit = data.get("orbit", {})
+    radii = np.asarray(phys.get("radii", [100.0, 100.0, 100.0]), dtype=np.float64)
+    epoch = phys.get("rotation_reference_epoch")
+    return BodyVisuals(
+        radii=radii,
+        right_ascension=float(phys.get("right_ascension", 0.0)),
+        declination=float(phys.get("declination", 0.0)),
+        rotation_reference_epoch=Epoch.parse(epoch) if epoch else None,
+        rotation_reference=float(phys.get("rotation_reference", 0.0)),
+        rotation_rate=float(phys.get("rotation_rate", 0.0)),
+        orbit_reference=orbit.get("reference"),
+        orbit_color=orbit.get("color"),
+    )
+
+
+def load_visuals_dir(directory: str | Path) -> dict[str, BodyVisuals]:
+    """name (lowercase stem) -> BodyVisuals for every *.visuals.toml."""
+    out = {}
+    for p in sorted(Path(directory).glob("*.visuals.toml")):
+        out[p.name.replace(".visuals.toml", "")] = load_visuals(p)
+    return out

@@ -953,9 +953,9 @@ SCENES = ("full_solar_system_2433282.5", "simple_solar_system_2433282.5",
           "sun_earth_moon_2433282.5")
 
 
-def _f64_start(case, device):
+def _f64_start(case, device, direction=1):
     """(native-f64 startup carry, mu, h) on ``device``: a bundled scene, or
-    the cloud of N bodies."""
+    the cloud of N bodies; ``direction=-1`` steps backward (h < 0)."""
     from ephemeris_explorer_tpu_torch.integrators import multistep as ms
     from ephemeris_explorer_tpu_torch.ops import nbody
 
@@ -966,6 +966,7 @@ def _f64_start(case, device):
     else:
         pos, mu = _cloud(case, 29)
         vel, h = np.zeros_like(pos), 600.0
+    h *= direction
     tm = torch.tensor(mu, device=device)
     c0 = ms.elm2_init(get(QT12), lambda t, y: nbody.pairwise_accel(y, tm), 0.0,
                       torch.tensor(pos, device=device), torch.tensor(vel, device=device), h)
@@ -978,7 +979,18 @@ def test_kernel11_f64_matches_plain_on_card(cuda_device, case):
     (emissions and both rings; same ops in the same order, CUDA's f64 rsqrt
     on both sides), one launch; 33 puts two sources in a lane, 256 is the
     cap."""
-    c0, tm, h = _f64_start(case, cuda_device)
+    _kernel11_f64_vs_plain(cuda_device, case, 1)
+
+
+@pytest.mark.parametrize("case", [*SCENES, 33, 256])
+def test_kernel11_f64_backward_matches_plain_on_card(cuda_device, case):
+    """Kernel 11-f64 stepping backward (h < 0, the route of backward
+    generation): bitwise to its plain version, one launch."""
+    _kernel11_f64_vs_plain(cuda_device, case, -1)
+
+
+def _kernel11_f64_vs_plain(cuda_device, case, direction):
+    c0, tm, h = _f64_start(case, cuda_device, direction)
     before = cuda_gen.elm2_gen_scan_f64.launches
     ys, c = cuda_gen.elm2_gen_scan_f64(get(QT12), h, c0, tm, 64)
     assert cuda_gen.elm2_gen_scan_f64.launches == before + 1
@@ -1017,6 +1029,32 @@ def test_f64_generation_takes_kernel11_f64_on_card(cuda_device):
         assert a.shape == b.shape
         if a.size:
             norm = np.abs(fit_matrix(sc.settings.settings[n].degree)).sum(1)
+            rows = norm > 0
+            d = np.abs(a - b).max(axis=(0, 2))[rows] / norm[rows]
+            assert d.max() <= 1e-10 * np.abs(a[:, 0]).max(), n
+
+
+def test_backward_f64_generation_takes_kernel11_f64_on_card(cuda_device):
+    """Backward "f64" generation of full_solar_system (30 days) on the card
+    runs through kernel 11-f64 alone, one launch a chunk, and its
+    coefficients stay within 1e-10 of the CPU's eager loop in sample space
+    (backward fit matrices), the bar chip_smoke.py's phase 7 holds the
+    forward year to."""
+    from ephemeris_explorer_tpu_torch import Duration
+    from ephemeris_explorer_tpu_torch.ops.polyfit import fit_matrix
+
+    sc = scene.load_scene(Path(__file__).resolve().parent.parent / "systems"
+                          / "full_solar_system_2433282.5")
+    span = Duration.from_days(30.0)  # 4320 steps, one chunk
+    before = _launches()
+    gen = eph.generate_ephemeris(sc.state, sc.settings, span, direction=-1, device=cuda_device)
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 0, 0, 0, 1]
+    cpu = eph.generate_ephemeris(sc.state, sc.settings, span, direction=-1, device="cpu")
+    for n in cpu.names:
+        a, b = cpu[n].coeffs, gen[n].coeffs
+        assert a.shape == b.shape and cpu[n].start_s == gen[n].start_s
+        if a.size:
+            norm = np.abs(fit_matrix(sc.settings.settings[n].degree, True)).sum(1)
             rows = norm > 0
             d = np.abs(a - b).max(axis=(0, 2))[rows] / norm[rows]
             assert d.max() <= 1e-10 * np.abs(a[:, 0]).max(), n
@@ -1103,3 +1141,153 @@ def test_fleet_on_card(cuda_device):
         for frac in (0.1, 0.5, 0.9):
             t = c.start_s + frac * (c.end_s - c.start_s)
             assert np.abs(g.position(t) - c.position(t)).max() < 1e-2, (s.name, frac)
+
+
+# ---------------------------------------------------------------------------
+# The Universe session on the card, against the same session on the CPU
+# ---------------------------------------------------------------------------
+
+SEM = Path(__file__).resolve().parent.parent / "systems" / "sun_earth_moon_2433282.5"
+
+
+def _universe_err(a, b):
+    """Worst per-body coefficient difference of two universes in sample
+    space (backward segments against the backward fit matrices), over each
+    body's max |position|; the layouts must be equal."""
+    from ephemeris_explorer_tpu_torch.ops.polyfit import fit_matrix
+
+    t0 = a.state.epoch.as_offset_seconds()
+    worst = 0.0
+    for n in a.names:
+        x, y = a.ephemeris[n], b.ephemeris[n]
+        assert (x.start_s, x.interval_s, x.segment_count) == (
+            y.start_s, y.interval_s, y.segment_count), n
+        k = int(round((t0 - x.start_s) / x.interval_s))
+        for part, backward in ((slice(0, k), True), (slice(k, None), False)):
+            ca, cb = x.coeffs[part], y.coeffs[part]
+            if ca.size:
+                norm = np.abs(fit_matrix(a.settings.settings[n].degree, backward)).sum(1)
+                rows = norm > 0
+                d = np.abs(ca - cb).max(axis=(0, 2))[rows] / norm[rows]
+                worst = max(worst, float(d.max() / np.abs(y.coeffs[:, 0]).max()))
+    return worst
+
+
+def _sessions(cuda_device):
+    """The sun_earth_moon session generated 40 days forward and 30 back on
+    the card and on the CPU; the card's kernel launches while generating."""
+    from ephemeris_explorer_tpu_torch import Duration
+    from ephemeris_explorer_tpu_torch.api import Universe
+
+    before = _launches()
+    g = Universe.load(SEM, device=cuda_device)
+    g.generate(Duration.from_days(40.0), Duration.from_days(30.0))
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_launches(), before)]
+    c = Universe.load(SEM, device="cpu")
+    c.generate(Duration.from_days(40.0), Duration.from_days(30.0))
+    return g, c, launched
+
+
+def test_universe_generation_on_card(cuda_device):
+    """A Universe on the card generates both directions through kernel
+    11-f64 (one launch a chunk, no other kernel), within 1e-10 of the CPU
+    session in sample space; a background extension paused and resumed,
+    then concurrent forward and backward tasks, keep that bar."""
+    from ephemeris_explorer_tpu_torch import Duration
+
+    g, c, launched = _sessions(cuda_device)
+    assert g.device.type == "cuda" and g._fwd.device.type == "cuda"
+    assert launched == [0, 0, 0, 0, 2]
+    assert _universe_err(g, c) <= 1e-10
+    task = g.extend(Duration.from_days(60.0), background=True)
+    task.pause()
+    assert task.paused
+    task.resume()
+    task.join(timeout=300)
+    assert not task.in_progress and task.progress == 1.0
+    c.extend(Duration.from_days(60.0))
+    assert _universe_err(g, c) <= 1e-10
+    t_f = g.extend(Duration.from_days(20.0), +1, background=True)
+    t_b = g.extend(Duration.from_days(30.0), -1, background=True)
+    t_f.join(timeout=300)
+    t_b.join(timeout=300)
+    c.extend(Duration.from_days(20.0), +1)
+    c.extend(Duration.from_days(30.0), -1)
+    assert _universe_err(g, c) <= 1e-10
+
+
+def test_universe_hammer_on_card(cuda_device):
+    """Reads racing a backward extension on the card (64-step chunks, each
+    merged under the lock) are bit-stable, and the extension lands."""
+    from ephemeris_explorer_tpu_torch import Duration, Epoch
+    from ephemeris_explorer_tpu_torch.api import PredictionTask, Universe
+
+    g = Universe.load(SEM, device=cuda_device)
+    g.generate(Duration.from_days(40.0))
+    t0 = g.state.epoch
+    at = Epoch.from_offset_seconds(t0.as_offset_seconds() + 10 * 86400.0)
+    ref = g.positions(at)
+    prop = g._propagator(-1)
+    n_steps = int(round(Duration.from_days(60.0).as_seconds() / prop.dt_s))
+    task = PredictionTask(prop, g.ephemeris, g.lock, prop.steps_done + n_steps,
+                          chunk_steps=64).start()
+    worst, reads = 0.0, 0
+    while task.in_progress:
+        worst = max(worst, float(np.max(np.abs(g.positions(at) - ref))))
+        assert len(g.export_state(at).bodies) == len(g.names)
+        reads += 1
+    task.join(timeout=300)
+    assert reads > 0 and worst == 0.0, (reads, worst)
+    assert g.ephemeris.start.as_offset_seconds() < t0.as_offset_seconds()
+
+
+def test_universe_replan_and_events_on_card(cuda_device):
+    """On the same coefficients, the card session's replans (a burned Earth
+    Station, then an edit of its burn: an incremental replan) stay within
+    1e-2 km of the CPU session's at 0.1, 0.5 and 0.9 of the span, end within
+    1 s, launch no kernel, keep every knot before the restart, and find the
+    same SOI transitions and apsides (bodies and kinds equal, times within
+    1 s)."""
+    from ephemeris_explorer_tpu_torch import Duration, Epoch
+    from ephemeris_explorer_tpu_torch.api import Burn
+
+    g, c, _ = _sessions(cuda_device)
+    g.ephemeris.bodies = {n: eph.BodyEphemeris(b.start_s, b.interval_s, b.coeffs.copy())
+                          for n, b in c.ephemeris.bodies.items()}
+    entries = {}
+    for u in (g, c):
+        ship = u.scene.ships[0]
+        entry = u.spawn_ship(ship, propagate_now=False)
+        t_burn = ship.start.as_offset_seconds() + 0.3 * (
+            ship.end.as_offset_seconds() - ship.start.as_offset_seconds())
+        entry.plan.add_burn(Burn(start=Epoch.from_offset_seconds(t_burn),
+                                 duration=Duration.from_seconds(120.0),
+                                 acceleration=np.array([5e-4, 0.0, 0.0]), reference="Earth"))
+        entries[u] = entry
+    before = _launches()
+    for stage in ("first", "edited"):
+        for u in (g, c):
+            entry = entries[u]
+            if stage == "edited":
+                bid = next(iter(entry.plan.burns))
+                kept = entry.trajectory.ts.copy()
+                u.edit_burn(entry.ship.name, bid, acceleration=[6e-4, 0.0, 0.0])
+                t_restart = entry.plan.burns[bid].start.as_offset_seconds()
+                n_kept = int(np.searchsorted(kept, t_restart, side="right"))
+                assert np.array_equal(entry.trajectory.ts[:n_kept], kept[:n_kept])
+            else:
+                u.replan(entry.ship.name)
+        a, b = entries[g], entries[c]
+        ta, tb = a.trajectory, b.trajectory
+        assert abs(ta.end_s - tb.end_s) < 1.0, stage
+        for f in (0.1, 0.5, 0.9):
+            t = tb.start_s + f * (tb.end_s - tb.start_s)
+            assert np.abs(ta.position(t) - tb.position(t)).max() < 1e-2, (stage, f)
+        assert [x for _, x in a.transitions] == [x for _, x in b.transitions], stage
+        assert [(x.body, x.periapsis) for x in a.apsides] == [
+            (x.body, x.periapsis) for x in b.apsides], stage
+        assert all(abs(x[0] - y[0]) < 1.0 for x, y in zip(a.transitions, b.transitions))
+        assert all(abs(x.time - y.time) < 1.0 for x, y in zip(a.apsides, b.apsides))
+    torch.cuda.synchronize()
+    assert _launches() == before

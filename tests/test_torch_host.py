@@ -76,7 +76,8 @@ def test_duration_parse_format_equal(text):
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its generation path) never imports JAX."""
+    """Importing the port (its generation path and its session layer) never
+    imports JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import ephemeris_explorer_tpu_torch\n"
@@ -86,6 +87,11 @@ def test_import_leaves_jax_out():
         "import ephemeris_explorer_tpu_torch.parallel.sharding\n"
         "import ephemeris_explorer_tpu_torch.integrators.adaptive\n"
         "import ephemeris_explorer_tpu_torch.spacecraft, ephemeris_explorer_tpu_torch.hostmirror\n"
+        "import ephemeris_explorer_tpu_torch.api, ephemeris_explorer_tpu_torch.events\n"
+        "import ephemeris_explorer_tpu_torch.analysis, ephemeris_explorer_tpu_torch.simulation\n"
+        "import ephemeris_explorer_tpu_torch.plot, ephemeris_explorer_tpu_torch.rotation\n"
+        "import ephemeris_explorer_tpu_torch.settings, ephemeris_explorer_tpu_torch.native\n"
+        "import ephemeris_explorer_tpu_torch.io.naif_ids, ephemeris_explorer_tpu_torch.io.horizons\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m.split('.')[0] == 'ephemeris_explorer_tpu']\n"
         "assert not bad, bad\n"
