@@ -75,7 +75,8 @@ them:
   the CPU port's flight, and the Earth Station coast on both devices
   (phase 30); fleet64, ``bench.py``'s 64 burning ships in one batch of
   ``propagate_ships``, against single-ship runs (phase 31).  Both print the
-  fleet loop's iterations, host syncs and aten ops an iteration;
+  fleet loop's iterations, host syncs and aten ops an iteration (kernel 14
+  since slice 19);
 * the session layer, a mission planner's session through ``api.Universe``
   on the card (phase 32): full_solar_system loaded, 440 days generated
   forward (bitwise to phase 30's coefficients) and 30 backward through
@@ -152,7 +153,16 @@ them:
   ``"extendedF"`` through the route against the eager step on the card,
   and one step's launches and aten ops (phase 42).  Every expansion step on
   the card is kernel 13 then the force writing the new ring row: phases 11,
-  34, 35 and 38 count one launch a scan step.
+  34, 35 and 38 count one launch a scan step;
+* the fleet loop on the card (slice 19): kernel 14, the whole loop of
+  ``spacecraft.propagate_batch`` in one kernel (one warp a ship, up to
+  ``cuda_fleet.ITERATIONS_PER_LAUNCH`` iterations a launch), bitwise to its
+  plain version, the eager loop, at B = 1, 4 and 64 on sun_earth_moon and
+  full_solar_system for Verner87 with TNB burns, Verner98, DormandPrince54
+  and Fine45, with its device time by CUDA events, bound and ptxas report
+  (phase 43).  Every flight on the card takes it: phases 30, 31, 32 and 37
+  hold their flights to kernel 14 alone, one launch a host read of the
+  done flags.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; then the run's total seconds; the line
@@ -191,7 +201,7 @@ FLAGSHIP_STEPS = 400
 GEN_STEPS = 2048
 GEN_CHUNK = 1024
 EXT_DAYS = 10.0        # path A span: 1440 steps of full_solar_system
-ALL_PHASES = ",".join(str(p) for p in range(1, 43))
+ALL_PHASES = ",".join(str(p) for p in range(1, 44))
 
 KERNEL1_VS_PLAIN = 1e-13   # max|d| / max|ref|, kernel 1 against its plain version
 KERNEL1_VS_F64 = 1e-12     # against native f64 (test_pallas_accel_matches_f64's bar)
@@ -436,6 +446,20 @@ VIEW_OPS = frozenset({"aten::view", "aten::_unsafe_view", "aten::unsqueeze", "at
                       "aten::t", "aten::transpose", "aten::permute", "aten::alias",
                       "aten::detach", "aten::lift_fresh", "aten::scalar_tensor",
                       "aten::_local_scalar_dense", "aten::is_nonzero"})
+# Kernel 14 (phase 43), the fleet loop against its plain version, the eager
+# loop, on the card: ships in low Earth orbits near the Earth Station's (7,000
+# km) on sun_earth_moon and full_solar_system, B of FLEET43_SIZES a batch,
+# FLEET43_SPAN_S each (+0, 5 or 10%), two 300 s burns a ship.  Each tableau
+# family flies with the burns that choose its RHS's form: TNB burns about
+# Earth on every ship (Verner87, the mission's and fleet64's form), inertial
+# burns on the odd ships, a coast, TNB burns on the odd ships (Fine45:
+# ERKNG and FSAL).  Every knot, count, reason and final segment bitwise.
+FLEET43_CASES = {"Verner87": "relative", "Verner98": "inertial", "DormandPrince54": "coast",
+                 "Fine45": "relative_odd"}
+FLEET43_SIZES = (1, 4, 64)
+FLEET43_SPAN_S = 6 * 3600.0
+FLEET43_EPH_DAYS = 40.0
+FLEET43_KNOTS = 1024
 SMS = 132  # an H100 SXM's SMs: a one-block kernel's bound is the card's x SMS
 
 
@@ -756,6 +780,7 @@ def main(argv=None) -> int:
     from ephemeris_explorer_tpu_torch.io import scene
     from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_limbs, cuda_nbody, nbody
     from ephemeris_explorer_tpu_torch.ops import cuda_elm2f64, cuda_elm2qs, cuda_limbs64, cuda_nbody64
+    from ephemeris_explorer_tpu_torch.ops import cuda_fleet
     from ephemeris_explorer_tpu_torch.ops import cuda_f32, cuda_gen, cuda_mixed, cuda_split
     from ephemeris_explorer_tpu_torch.ops import cuda_sym, nbody_full3, split
     from ephemeris_explorer_tpu_torch.ops import perturbations as perts
@@ -791,7 +816,8 @@ def main(argv=None) -> int:
                  "gen_scan_f64": cuda_gen.elm2_gen_scan_f64,
                  "accel_full3": nbody_full3.pairwise_accel_full3,
                  "elm2f64_update_shift": cuda_elm2f64.elm2f64_update_shift,
-                 "elm2q_update_shift": cuda_elm2qs.elm2q_update_shift}
+                 "elm2q_update_shift": cuda_elm2qs.elm2q_update_shift,
+                 "fleet_scan": cuda_fleet.fleet_scan}
 
     def reset_counts():
         for fn in launchers.values():
@@ -864,6 +890,11 @@ def main(argv=None) -> int:
 
         def __exit__(self, *exc):
             ms._step_q_shift = self.orig
+
+    def fleet_only(launches, syncs: int) -> bool:
+        """Kernel 14 alone launched, once a host read of the done flags (the
+        fleet loop's syncs), and at least once."""
+        return launches["fleet_scan"] == syncs == sum(launches.values()) and syncs > 0
 
     def but_f64(launches) -> int:
         """Launches of every kernel but the native-f64 step's: kernel 1-f64's
@@ -3178,7 +3209,9 @@ def main(argv=None) -> int:
         reset_counts()
         traj, fly_s, fly_it, fly_syncs = fleet_run(lambda: fly(dev))
         launches_fly = read_counts()
-        check(not any(launches_fly.values()), f"phase 30: the flight launched {launches_fly}")
+        check(fleet_only(launches_fly, fly_syncs),
+              f"phase 30: the flight launched {launches_fly} in {fly_syncs} host reads")
+        record.setdefault("fleet_scan", {})["launches"] = launches_fly["fleet_scan"]
         check(traj.end_s >= until.as_offset_seconds() - 1.0,
               f"the mission stopped early at {port.Epoch.from_offset_seconds(traj.end_s)}")
         dist, dist_cpu = {}, {}
@@ -3202,8 +3235,13 @@ def main(argv=None) -> int:
         e_sem = eph.generate_ephemeris(sem.state, sem.settings, port.Duration.from_days(40.0),
                                        device=dev)
         reset_counts()
-        st_g, st_s, st_it, _ = fleet_run(lambda: sc_.propagate_ship(e_sem, sem.ships[0], device=dev))
-        check(not any(read_counts().values()), "phase 30: the Earth Station flight launched kernels")
+        st_g, st_s, st_it, st_syncs = fleet_run(
+            lambda: sc_.propagate_ship(e_sem, sem.ships[0], device=dev))
+        launches_st = read_counts()
+        check(fleet_only(launches_st, st_syncs),
+              f"phase 30: the Earth Station flight launched {launches_st} in {st_syncs} reads")
+        record["fleet_scan"].setdefault("launches_by_phase", {})["30_earth_station"] = (
+            launches_st["fleet_scan"])
         st_c = sc_.propagate_ship(e_sem, sem.ships[0], device="cpu")
         st_km = _traj_km(st_c, st_g)
         check(st_km <= FLEET_VS_SINGLE_KM and abs(st_g.end_s - st_c.end_s) < 1.0,
@@ -3246,7 +3284,10 @@ def main(argv=None) -> int:
         reset_counts()
         runs = [fleet_run(fleet) for _ in range(FLEET_RUNS)]
         launches_fleet = read_counts()
-        check(not any(launches_fleet.values()), f"fleet64 launched kernels: {launches_fleet}")
+        check(fleet_only(launches_fleet, sum(r[3] for r in runs)),
+              f"fleet64 launched {launches_fleet} in {sum(r[3] for r in runs)} host reads")
+        record.setdefault("fleet_scan", {}).setdefault("launches_by_phase", {})["31"] = (
+            launches_fleet["fleet_scan"])
         same = all(np.array_equal(r[0][x.name].ts, first[x.name].ts)
                    and np.array_equal(r[0][x.name].pos, first[x.name].pos)
                    for r in runs for x in ships)
@@ -3318,9 +3359,12 @@ def main(argv=None) -> int:
         entry = u.spawn_ship(ship, propagate_now=False)
         u.set_plan_end(ship.name, until, replan=False)
         reset_counts()
+        sc_.propagate_batch.syncs = 0
         traj = timed("replan", lambda: u.replan(ship.name, max_knots=MISSION_KNOTS))
         launches_replan = read_counts()
-        check(not any(launches_replan.values()), f"phase 32: the replan launched {launches_replan}")
+        check(fleet_only(launches_replan, sc_.propagate_batch.syncs),
+              f"phase 32: the replan launched {launches_replan} in "
+              f"{sc_.propagate_batch.syncs} host reads")
         check(traj.end_s >= until.as_offset_seconds() - 1.0,
               f"phase 32: the replan stopped at {port.Epoch.from_offset_seconds(traj.end_s)}")
         n_knots = len(traj.ts)
@@ -3394,10 +3438,15 @@ def main(argv=None) -> int:
         check(t_restart == last.start.as_offset_seconds(),
               f"phase 32: restart at {t_restart}, not at the edited burn's start")
         reset_counts()
+        sc_.propagate_batch.syncs = 0
         traj2 = timed("replan_incremental", lambda: u.replan(ship.name, max_knots=MISSION_KNOTS))
         launches_edit = read_counts()
-        check(not any(launches_edit.values()), f"phase 32: the edit's replan launched "
-                                               f"{launches_edit}")
+        check(fleet_only(launches_edit, sc_.propagate_batch.syncs),
+              f"phase 32: the edit's replan launched {launches_edit} in "
+              f"{sc_.propagate_batch.syncs} host reads")
+        record.setdefault("fleet_scan", {}).setdefault("launches_by_phase", {}).update(
+            {"32_replan": launches_replan["fleet_scan"],
+             "32_edit": launches_edit["fleet_scan"]})
         n_keep = int(np.count_nonzero(old[0] < t_restart))
         kept = all(np.array_equal(a[:n_keep], b[:n_keep])
                    for a, b in zip((traj2.ts, traj2.pos, traj2.vel), old))
@@ -3891,12 +3940,17 @@ def main(argv=None) -> int:
             fn, place = sh.make_sharded_fleet_propagator(mesh, "Verner87",
                                                          sc_.ship_params(ships[0]), FLEET_KNOTS)
             reset_counts()
+            sc_.propagate_batch.syncs = 0
             t0 = time.perf_counter()
             res = sh.gather_fleet(mesh, fn(*place(e_f.pack(dev), tls, t0s, p0s, v0s, ends)))
             torch.cuda.synchronize()
             fleet_s = time.perf_counter() - t0
             launches_fleet = read_counts()
-            check(not any(launches_fleet.values()), f"phase 37: the fleet launched {launches_fleet}")
+            check(fleet_only(launches_fleet, sc_.propagate_batch.syncs),
+                  f"phase 37: the fleet launched {launches_fleet} in "
+                  f"{sc_.propagate_batch.syncs} host reads")
+            record.setdefault("fleet_scan", {}).setdefault("launches_by_phase", {})["37"] = (
+                launches_fleet["fleet_scan"])
             r = sc_._fetch(res)
             fleet_same = all(
                 int(r.reason[i]) != sc_.DONE_KNOTS_FULL
@@ -4582,6 +4636,162 @@ def main(argv=None) -> int:
                                                        if "spill" in ln}),
                           "phase_s": time.perf_counter() - t_phase, "card": smi}))
 
+    # -- phase 43: kernel 14, the fleet loop ------------------------------------
+    if 43 in phases:
+        from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+        t_phase = time.perf_counter()
+        params43 = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
+        scenes43 = {}
+        for name in ("sun_earth_moon_2433282.5", "full_solar_system_2433282.5"):
+            sc43 = scene.load_scene(ROOT / "systems" / name)
+            e43 = (mission["eph"] if mission and name.startswith("full") else
+                   eph.generate_ephemeris(sc43.state, sc43.settings,
+                                          port.Duration.from_days(FLEET43_EPH_DAYS), device=dev))
+            scenes43[name] = (sc43, e43)
+
+        def fleet43_inputs(sc43, e43, b, burns):
+            """(stacked timelines, t0s, p0s, v0s, ends) of b ships in low
+            Earth orbits at the scene's epoch, ``burns`` as in FLEET43_CASES."""
+            index = {n: i for i, n in enumerate(e43.names)}
+            t0 = sc43.state.epoch.as_offset_seconds()
+            ep, ev = e43["Earth"].state_vector(t0)
+            r = 7000.0
+            v_circ = float(np.sqrt(sc43.state.bodies[index["Earth"]].mu / r))
+            tls = []
+            for k in range(b):
+                acc = np.array([2e-3, -1e-3, 5e-4]) * (1.0 + 0.01 * k)
+                relative = burns == "relative" or (burns == "relative_odd" and k % 2)
+                inertial = burns == "inertial" and k % 2
+                tls.append(sc_.build_timeline([
+                    scene.ShipBurn(start=port.Epoch.from_offset_seconds(
+                                       t0 + 1800.0 + 97.0 * k + j * 7200.0),
+                                   duration=port.Duration.from_seconds(300.0), acceleration=acc,
+                                   reference="Earth" if relative else None)
+                    for j in range(2) if relative or inertial], index))
+            k = np.arange(b)
+            p0s = ep[None] + np.stack([r + 40.0 * k, -25.0 * k, 10.0 * k], -1)
+            v0s = ev[None] + np.stack([0.0 * k, v_circ * (1.0 + 1e-4 * k), 0.0 * k], -1)
+            return (sc_.stack_timelines(tls), np.full(b, t0), p0s, v0s,
+                    t0 + FLEET43_SPAN_S * (1.0 + 0.05 * (k % 3)))
+
+        def timed_fleet(fly):
+            """(result, device ms of kernel 14's launches by CUDA events, per
+            ship the iterations kernel 14 ran): ``fly()`` with
+            cuda_fleet.fleet_scan wrapped for the call (uncounted)."""
+            orig, spans, iters = cuda_fleet.fleet_scan, [], []
+
+            def scan(p, eph_, tl, end_t, fstate, istate, knots, *a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                orig(p, eph_, tl, end_t, fstate, istate, knots, *a, **kw)
+                e1.record()
+                spans.append((e0, e1))
+                iters.append(istate[cuda_fleet.I_ITERS].clone())
+
+            scan.launches = 0
+            cuda_fleet.fleet_scan = scan
+            try:
+                out = fly()
+                torch.cuda.synchronize()
+            finally:
+                cuda_fleet.fleet_scan = orig
+            return (out, sum(a.elapsed_time(b_) for a, b_ in spans), len(spans),
+                    torch.stack(iters).sum(0).cpu().numpy())
+
+        cases43 = []
+        for scene_name, (sc43, e43) in scenes43.items():
+            packed = e43.pack(dev)
+            for method, burns in FLEET43_CASES.items():
+                tab43 = get(method)
+                for b in FLEET43_SIZES:
+                    inputs = fleet43_inputs(sc43, e43, b, burns)
+
+                    def fly(route=sc_.propagate_batch):
+                        return route(tab43, packed, *inputs, params43, max_knots=FLEET43_KNOTS)
+
+                    reset_counts()
+                    sc_.propagate_batch.syncs = sc_.propagate_batch.iterations = 0
+                    k43 = fly()
+                    torch.cuda.synchronize()
+                    launched = read_counts()
+                    syncs, iters = sc_.propagate_batch.syncs, sc_.propagate_batch.iterations
+                    k43b, dev_ms, n_launch, ship_iters = timed_fleet(fly)
+                    sc_.propagate_batch.iterations = 0
+                    t0 = time.perf_counter()
+                    p43 = fly(sc_.propagate_batch_plain)
+                    torch.cuda.synchronize()
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    plain_iters = sc_.propagate_batch.iterations
+                    same = all(torch.equal(x, y) for x, y in zip(k43, p43))
+                    again = all(torch.equal(x, y) for x, y in zip(k43, k43b))
+                    err = max(((x - y).abs().max().item() for x, y in
+                               ((k43.pos, p43.pos), (k43.vel, p43.vel))
+                               if torch.isfinite(x).all() and torch.isfinite(y).all()),
+                              default=float("nan"))
+                    check(fleet_only(launched, syncs) and same and again
+                          and bool((k43.count > 10).all())
+                          and bool((k43.reason == sc_.DONE_END).all()),
+                          f"phase 43: kernel 14 on {scene_name}, {method} at B = {b}: launches "
+                          f"{launched} in {syncs} reads, bitwise to plain {same}, to itself "
+                          f"{again}, counts {k43.count.tolist()[:8]}, reasons "
+                          f"{k43.reason.tolist()[:8]}")
+                    case = {"scene": scene_name, "method": method, "burns": burns, "b": b,
+                            "bitwise": same, "knots": int(k43.count.sum()),
+                            "launches": launched["fleet_scan"], "iterations": iters,
+                            "ship_iterations": int(ship_iters.sum()),
+                            "device_ms": dev_ms, "device_us_per_launch": dev_ms * 1e3 / n_launch,
+                            "device_us_per_iteration": dev_ms * 1e3 / iters,
+                            "plain_ms": plain_ms, "plain_iterations": plain_iters,
+                            "plain_ms_per_iteration": plain_ms / plain_iters}
+                    if method == "Verner87" and scene_name.startswith("full") and b in (1, 64):
+                        # bytes: the segments the flights span, each body's
+                        # tables, the knots written, the ships' start and end
+                        kmax = int(k43.count.max())
+                        seg_rows = []
+                        for i in range(packed.mus.shape[0]):
+                            lo, hi = (int(min(max(np.ceil((t - float(packed.starts[i]))
+                                                          / float(packed.intervals[i])) - 1, 0),
+                                              int(packed.nsegs[i]) - 1))
+                                      for t in (float(inputs[1].min()), float(inputs[4].max())))
+                            off = int(packed.offsets[i])
+                            seg_rows.append(packed.coeffs[off + lo:off + hi + 1])
+                        b43 = bound_of(lambda: fly(sc_.propagate_batch_plain),
+                                       [*seg_rows, packed.mus, packed.starts, packed.intervals,
+                                        packed.offsets, packed.nsegs, k43.ts[:, :kmax],
+                                        k43.pos[:, :kmax], k43.vel[:, :kmax],
+                                        torch.as_tensor(inputs[2]), torch.as_tensor(inputs[3])])
+                        # the plain loop computes every ship every iteration: count
+                        # the share of (ship, iteration) pairs the ships ran
+                        share = float(ship_iters.sum()) / (b * plain_iters)
+                        for key in ("bound_ms",):
+                            b43[key] = b43[key] * share
+                        b43["ops"] = {dt: n * share for dt, n in b43["ops"].items()}
+                        b43["ship_iteration_share"] = share
+                        case["bound"] = b43
+                        case["bound_share"] = b43["bound_ms"] / dev_ms
+                        case["bound_b_sms_ms"] = b43["bound_ms"] * SMS / min(b, SMS)
+                        if b == 1:
+                            record.setdefault("fleet_scan", {}).update(
+                                kernel_record(err, dev_ms, plain_ms, b43))
+                            record["fleet_scan"]["bound_b_sms_ms"] = case["bound_b_sms_ms"]
+                    cases43.append(case)
+        ptxas = {}
+        for ln in ptxas_of("fleet_scan_kernel"):
+            j = re.search(r"fleet_scan_kernelILi(\d+)ELb([01])E", ln)
+            if j:
+                key = f"{'ERKNG' if j.group(2) == '1' else 'ERK'}{j.group(1)}"
+            elif "registers" in ln or "spill" in ln:
+                ptxas.setdefault(key, []).append(ln.split(":", 1)[-1].strip())
+        spills = sorted({ln for v in ptxas.values() for ln in v
+                         if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln})
+        check(not spills, f"phase 43: kernel 14 spills registers: {spills}")
+        print(json.dumps({"phase": 43, "kernel": "fleet_scan (kernel 14)", "cases": cases43,
+                          "iterations_per_launch": cuda_fleet.ITERATIONS_PER_LAUNCH,
+                          "ptxas": ptxas, "ptxas_spill_lines": spills,
+                          "phase_s": time.perf_counter() - t_phase, "card": smi}))
+
     if phases != {int(p) for p in ALL_PHASES.split(",")}:
         return 0
     pallas = "ephemeris_explorer_tpu/ops/pallas_nbody.py"
@@ -4625,6 +4835,7 @@ def main(argv=None) -> int:
             ("accel_full3", "accel_full3.cu", "ephemeris_explorer_tpu/ops/nbody_full3.py:27"),
             ("elm2q_update_shift", "elm2q_step.cu",
              "ephemeris_explorer_tpu/integrators/multistep.py:788"),
+            ("fleet_scan", "fleet_scan.cu", "ephemeris_explorer_tpu/spacecraft.py:253"),
         )
     ]
     by_name = {k["name"]: k for k in kernels}
@@ -4633,6 +4844,14 @@ def main(argv=None) -> int:
     by_name["elm2q_update_shift"]["note"] = (
         "not a Pallas kernel: the JAX package runs elm2_step_q's update as one XLA program; the "
         "nearest TPU kernel is ephemeris_explorer_tpu/ops/pallas_elm2.py:97 (kernel 4)")
+    by_name["fleet_scan"]["note"] = (
+        "not a Pallas kernel: the JAX package runs propagate's nested lax.while_loops "
+        "(ephemeris_explorer_tpu/spacecraft.py:253, vmapped at :715) as one XLA program; "
+        "launches: the Mars mission's flight (phase 30); ms, plain_ms and bound_ms: phase 43's "
+        "B = 1 Verner87 case on full_solar_system, the whole propagation (device ms by CUDA "
+        "events over its launches), the bound scaled to the ship-iterations run; "
+        "bound_b_sms_ms: one ship is one warp on one SM")
+    by_name["fleet_scan"]["bound_b_sms_ms"] = record["fleet_scan"]["bound_b_sms_ms"]
     # launches on the other paths that run a form (its main path's are
     # "launches"): kernel 11-f64's in phase 7 forward and backward and in the
     # session of phase 32; kernels 3, 4 and 12's in the audit's modes (phase 38)

@@ -177,6 +177,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_gen_scan.restype = _int
     lib.eet_gen_scan_f64.argtypes = [_vp, _vp, _int, ctypes.c_double] + [_vp] * 6 + [_int, _int, _vp]
     lib.eet_gen_scan_f64.restype = _int
+    lib.eet_fleet_scan.argtypes = ([_int, _int, _vp, _vp, ctypes.c_longlong, _int, _int, _int]
+                                   + [_vp] * 6 + [_int] + [_vp] * 4 + [_int] + [_vp] * 4
+                                   + [_int] * 3 + [_vp])
+    lib.eet_fleet_scan.restype = _int
     lib.eet_accel_full3.argtypes = [_vp] * 6 + [ctypes.c_longlong, _int, _vp]
     lib.eet_accel_full3.restype = _int
     lib.eet_accel_full3_smem_bodies.argtypes = []

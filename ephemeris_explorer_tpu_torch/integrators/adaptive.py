@@ -67,18 +67,12 @@ def _leaves(y) -> tuple:
     return y if isinstance(y, tuple) else (y,)
 
 
-def abs_tol_norm(tol_pos: float, tol_vel: float, rows: bool = False):
-    """AbsTol error norm (dynamics/spacecraft.rs:615-641): state = (pos, vel).
-
-    ``rows=True`` reduces only the last axis, one norm per state of a batch
-    of (B, 3) errors (a max is exact, so each row equals its own norm)."""
-
-    def amax(x):
-        return x.amax(-1) if rows else x.max()
+def abs_tol_norm(tol_pos: float, tol_vel: float):
+    """AbsTol error norm (dynamics/spacecraft.rs:615-641): state = (pos, vel)."""
 
     def norm(_y_new, err):
         e_pos, e_vel = err
-        return torch.maximum(amax((e_pos / tol_pos).abs()), amax((e_vel / tol_vel).abs()))
+        return torch.maximum((e_pos / tol_pos).abs().max(), (e_vel / tol_vel).abs().max())
 
     return norm
 

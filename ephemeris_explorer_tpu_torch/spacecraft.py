@@ -18,17 +18,26 @@ Port of ``ephemeris_explorer_tpu.spacecraft`` (the reference's
   buffer, the cubic-Hermite trajectory (``trajectory.rs:745-855``).
 
 The JAX package nests three ``lax.while_loop``s (segments, accepted steps,
-attempts) and vmaps them over a fleet.  Here :func:`propagate_batch` is one
-batched, masked device loop: the state of B ships is held in tensors, and
-one iteration advances every live ship by one step of its own state
-machine.  A ship inside a segment makes one attempt, applies the shared
-controller (:func:`.integrators.adaptive.control`) and, if the attempt was
-accepted, appends a knot; a ship whose segment has ended takes the fresh
-state of its next segment.  Branches are ``torch.where`` selects, so a NaN
-in a branch a ship does not take stays out of its state.  The host reads
-one "all done" flag every :data:`SYNC_EVERY` iterations and nothing else
-until the loop ends; each ship sees the sequence of operations the
-single-ship loop gives it.
+attempts) and vmaps them over a fleet.  Here :func:`propagate_batch` holds
+the state of B ships and advances every live ship by one step of its own
+state machine an iteration.  A ship inside a segment makes one attempt,
+applies the shared controller (:func:`.integrators.adaptive.control`) and,
+if the attempt was accepted, appends a knot; a ship whose segment has ended
+takes the fresh state of its next segment.  Each ship sees the sequence of
+operations the single-ship loop gives it, whatever the batch beside it but
+for two batch flags (whether any ship burns, whether any burn is
+body-relative), which choose the RHS's form.
+
+On the card the loop is kernel 14 (:mod:`.ops.cuda_fleet`, one warp a
+ship): a launch advances every live ship by up to
+``cuda_fleet.ITERATIONS_PER_LAUNCH`` iterations, and the host reads the
+done flags once a launch.  On the CPU it is :func:`propagate_batch_plain`,
+the kernel's plain version: one batched, masked eager loop whose branches
+are ``torch.where`` selects (a NaN in a branch a ship does not take stays
+out of its state), with one read of an "all done" flag every
+:data:`SYNC_EVERY` iterations.  Its sums over bodies, norms, cross and
+matrix products are written out in the kernel's order, so the two agree
+bitwise on the card.
 
 Every entry point runs on the device its caller names (``device=None``:
 the card, :func:`._device.resolve`), whatever the batch size.  Not copied
@@ -55,7 +64,6 @@ from .integrators import adaptive
 from .integrators.adaptive import AdaptiveParams
 from .integrators.methods import ERKNGTableau, ERKTableau, get as get_method
 from .io.scene import Ship, ShipBurn
-from .ops import nbody
 
 EPOCH_MIN = -1.0e300
 EPOCH_MAX = 1.0e300
@@ -163,15 +171,32 @@ def divergence_time(old: Timeline, new: Timeline, before) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last axis of 3, kept as an axis of 1, the products
+    added left to right: kernel 14's order (``csrc/fleet_scan.cu``), where
+    ``.sum(-1)`` leaves it to torch."""
+    p = a * b
+    return (p[..., 0:1] + p[..., 1:2]) + p[..., 2:3]
+
+
 def _unit(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / torch.sqrt(_dot3(v, v))
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b, each component two products and a subtraction, each one op:
+    (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0)."""
+    aa, bb = torch.cat([a, a], -1), torch.cat([b, b], -1)
+    return aa[..., 1:4] * bb[..., 2:5] - aa[..., 2:5] * bb[..., 1:4]
 
 
 def tnb_to_inertial(rel_pos, rel_vel, accel) -> torch.Tensor:
     """Transform a TNB-frame acceleration to inertial, over leading axes.
 
     TNB basis (dynamics/spacecraft.rs:246-252): x = v_hat,
-    y = (r x v)_hat, z = x cross y; matrix columns (x, z, y).
+    y = (r x v)_hat, z = x cross y; matrix columns (x, z, y).  Norms, cross
+    products and the matrix product are written out op by op in kernel 14's
+    order (a norm is the square root of a left-to-right sum).
 
     Degenerate geometry (zero relative velocity or collinear r, v) yields a
     NaN acceleration, which the adaptive loop detects as a non-finite
@@ -179,11 +204,10 @@ def tnb_to_inertial(rel_pos, rel_vel, accel) -> torch.Tensor:
     equivalent of ``TNB::try_new`` returning ``None``
     (dynamics/spacecraft.rs:242-253).
     """
-    x = _unit(rel_vel)
-    y = _unit(torch.linalg.cross(rel_pos, rel_vel))
-    z = _unit(torch.linalg.cross(x, y))
-    m = torch.stack([x, z, y], dim=-1)  # columns
-    return (m * accel[..., None, :]).sum(-1)
+    xy = _unit(torch.stack([rel_vel, _cross(rel_pos, rel_vel)], -2))
+    x, y = xy[..., 0, :], xy[..., 1, :]
+    z = _unit(_cross(x, y))
+    return (x * accel[..., 0:1] + z * accel[..., 1:2]) + y * accel[..., 2:3]
 
 
 def _frame_state(bodies: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
@@ -258,6 +282,40 @@ def _stage_bodies(eph: PackedEphemeris, t_stages, frame_body, frame: bool) -> li
     return [(bpos[:, s], None, None) for s in range(t_stages.shape[1])]
 
 
+# kernel 14's warp: the lanes of its sum over bodies
+LANES = 32
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over axis -2 of (..., N, 3) in kernel 14's order: lane l of a
+    warp adds rows l, l + 32, l + 64, ... to 0.0 in turn, then a halving
+    tree adds lane l + off's partial to lane l's for off = 16, 8, 4, 2, 1.
+    Here N is padded with zero rows to a multiple of 32 and the 32-row
+    slices are folded in order; a partial is never -0.0, so a zero row adds
+    nothing, as a lane past N adds nothing in the kernel."""
+    pad = -x.shape[-2] % LANES
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    x = x.reshape(*x.shape[:-2], -1, LANES, x.shape[-1])
+    acc = x[..., 0, :, :] + 0.0
+    for j in range(1, x.shape[-3]):
+        acc = acc + x[..., j, :, :]
+    off = LANES // 2
+    while off:
+        acc = acc[..., :off, :] + acc[..., off:2 * off, :]
+        off //= 2
+    return acc[..., 0, :]
+
+
+def _probe_accel(bpos: torch.Tensor, mu: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """``ops.nbody.accel_at``'s gravity at ships ``at`` (B, 3) from bodies
+    (B, N, 3), in kernel 14's order: r^2 added left to right, the bodies
+    summed by :func:`_lane_sum`."""
+    d = bpos - at[..., None, :]
+    inv_r = torch.rsqrt(_dot3(d, d))
+    return _lane_sum(d * (mu[:, None] * (inv_r * inv_r * inv_r)))
+
+
 def _make_rhs(tab, eph: PackedEphemeris, stages: list, accel, relative, burning,
               burns: bool, frames: bool):
     """The spacecraft RHS of one attempt, for every ship of the batch.
@@ -273,7 +331,7 @@ def _make_rhs(tab, eph: PackedEphemeris, stages: list, accel, relative, burning,
 
     def total(pos, vel):
         bpos, fpos, fvel = next(it)
-        acc = nbody.accel_at(bpos, eph.mus, pos)
+        acc = _probe_accel(bpos, eph.mus, pos)
         if not burns:
             return acc
         man = _burn_accel(pos, vel, accel, relative, fpos, fvel) if frames else accel
@@ -284,11 +342,60 @@ def _make_rhs(tab, eph: PackedEphemeris, stages: list, accel, relative, burning,
     return lambda t, y: torch.cat([y[:, 3:], total(y[:, :3], y[:, 3:])], -1)
 
 
+def _err_norm(err_pos, err_vel, inv_tol_pos: float, inv_tol_vel: float) -> torch.Tensor:
+    """``adaptive.abs_tol_norm``, one norm a ship of (B, 3) errors (a max
+    is exact, so each row is its own norm), each error scaled by the host's
+    1/tol: kernel 14 multiplies as torch's CUDA division by a host scalar
+    does, here written out so that the CPU does the same."""
+    return torch.maximum((err_pos * inv_tol_pos).abs().amax(-1),
+                         (err_vel * inv_tol_vel).abs().amax(-1))
+
+
 def _where(c: torch.Tensor, a, b):
     """Select rows of a tensor or of each leaf of a pair."""
     if isinstance(a, tuple):
         return tuple(_where(c, x, z) for x, z in zip(a, b))
     return torch.where(c.reshape(c.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+class _FleetStart(NamedTuple):
+    """The fleet loop's inputs on ``eph``'s device, shared by both routes."""
+
+    tl: Timeline             # (B, S) tensors, kinds and bodies int64
+    burns: bool              # any ship burns
+    frames: bool             # any burn is body-relative
+    t: torch.Tensor          # (B,)
+    pos0: torch.Tensor       # (B, 3)
+    vel0: torch.Tensor       # (B, 3)
+    end_t: torch.Tensor      # (B,) the requested end, bounded by the coverage
+    seg: torch.Tensor        # (B,) int64 each ship's first segment
+    knots: torch.Tensor      # (B, max_knots + 1, 7): row 0 the start, t = inf past it
+
+
+def _fleet_start(eph: PackedEphemeris, timelines: Timeline, t0s, pos0s, vel0s, end_ts,
+                 max_knots: int) -> _FleetStart:
+    dev = eph.coeffs.device
+
+    def d(x, dtype=F64):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    tl = Timeline(d(timelines.starts), d(timelines.ends), d(timelines.accels),
+                  d(timelines.frame_kind, torch.int64), d(timelines.frame_body, torch.int64))
+    burns = bool(np.any(np.asarray(timelines.accels) != 0.0))
+    frames = burns and bool(np.any(np.asarray(timelines.frame_kind) == FRAME_RELATIVE))
+    t = d(t0s)
+    pos0, vel0 = d(pos0s), d(vel0s)
+    knots = torch.zeros((t.shape[0], max_knots + 1, 7), dtype=F64, device=dev)
+    knots[:, :, 0] = torch.inf
+    knots[:, 0] = torch.cat([t[:, None], pos0, vel0], -1)
+    return _FleetStart(tl, burns, frames, t, pos0, vel0,
+                       torch.minimum(d(end_ts), eph.end_s), segment_idx_at(tl, t), knots)
+
+
+def _result(knots: torch.Tensor, count, reason, final_seg, max_knots: int) -> PropagationResult:
+    return PropagationResult(ts=knots[:, :max_knots, 0], pos=knots[:, :max_knots, 1:4],
+                             vel=knots[:, :max_knots, 4:7], count=count, reason=reason,
+                             final_seg=final_seg)
 
 
 def propagate_batch(
@@ -311,37 +418,84 @@ def propagate_batch(
     more, a sink for the appends of ships that accepted no step, is cut
     off).  Counts the loop's iterations and host syncs on
     ``propagate_batch.iterations`` / ``.syncs``.
+
+    On the card the loop is kernel 14 (:mod:`.ops.cuda_fleet`): one launch
+    advances every live ship by up to ``cuda_fleet.ITERATIONS_PER_LAUNCH``
+    iterations, and the host reads the done flags once a launch; a build or
+    launch failure raises.  On the CPU it is the eager loop,
+    :func:`propagate_batch_plain`, the kernel's plain version: the two run
+    the same operations on each ship in the same order.
     """
     if not isinstance(tab, (ERKTableau, ERKNGTableau)):
         raise TypeError(f"spacecraft integrators are ERK or ERKNG tableaux, not {type(tab)}")
+    if eph.coeffs.device.type == "cpu":
+        return propagate_batch_plain(tab, eph, timelines, t0s, pos0s, vel0s, end_ts, params,
+                                     max_knots=max_knots)
+    return _propagate_batch_kernel(tab, eph, timelines, t0s, pos0s, vel0s, end_ts, params,
+                                   max_knots)
+
+
+propagate_batch.iterations = 0
+propagate_batch.syncs = 0
+
+
+def _propagate_batch_kernel(tab, eph, timelines, t0s, pos0s, vel0s, end_ts, params,
+                            max_knots) -> PropagationResult:
+    """The fleet loop through kernel 14: launches until every ship is done,
+    one host read of the done flags a launch."""
+    from .ops import cuda_fleet
+
+    f = _fleet_start(eph, timelines, t0s, pos0s, vel0s, end_ts, max_knots)
+    plan = cuda_fleet.plan(tab, params, f.burns, f.frames, eph.coeffs.device)
+    fstate, istate = cuda_fleet.start_state(f.t, f.pos0, f.vel0, f.seg, params.h_init)
+    iterations = syncs = 0
+    while True:
+        cuda_fleet.fleet_scan(plan, eph, f.tl, f.end_t, fstate, istate, f.knots)
+        done, iters = istate[cuda_fleet.I_DONE:cuda_fleet.I_ITERS + 1].cpu()
+        iterations += int(iters.max())
+        syncs += 1
+        if bool(done.all()):
+            break
+    propagate_batch.iterations += iterations
+    propagate_batch.syncs += syncs
+    return _result(f.knots, istate[cuda_fleet.I_COUNT], istate[cuda_fleet.I_REASON],
+                   istate[cuda_fleet.I_SEG], max_knots)
+
+
+def propagate_batch_plain(
+    tab,
+    eph: PackedEphemeris,
+    timelines: Timeline,
+    t0s,
+    pos0s,
+    vel0s,
+    end_ts,
+    params: AdaptiveParams,
+    max_knots: int = KNOT_CAPACITY,
+) -> PropagationResult:
+    """The fleet loop as eager torch on ``eph``'s device: kernel 14's plain
+    version and the CPU's route (:func:`propagate_batch` takes it for CPU
+    tensors).  Arguments and result as :func:`propagate_batch`'s; it reads
+    the "all done" flag once every :data:`SYNC_EVERY` iterations."""
+    if not isinstance(tab, (ERKTableau, ERKNGTableau)):
+        raise TypeError(f"spacecraft integrators are ERK or ERKNG tableaux, not {type(tab)}")
+    f = _fleet_start(eph, timelines, t0s, pos0s, vel0s, end_ts, max_knots)
+    tl, burns, frames, end_t, knots = f.tl, f.burns, f.frames, f.end_t, f.knots
     dev = eph.coeffs.device
-
-    def d(x, dtype=F64):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-
-    tl = Timeline(d(timelines.starts), d(timelines.ends), d(timelines.accels),
-                  d(timelines.frame_kind, torch.int64), d(timelines.frame_body, torch.int64))
     n_seg = tl.n_segments
-    burns = bool(np.any(np.asarray(timelines.accels) != 0.0))
-    frames = burns and bool(np.any(np.asarray(timelines.frame_kind) == FRAME_RELATIVE))
     erk = isinstance(tab, ERKTableau)
-    c_row = d(tab.c)[None, :]
-    tol = adaptive.abs_tol_norm(params.tol_pos, params.tol_vel, rows=True)
+    c_row = torch.as_tensor(tab.c, dtype=F64, device=dev)[None, :]
+    inv_tol = (1.0 / params.tol_pos, 1.0 / params.tol_vel)
 
-    def err_norm(y_new, err):
-        return tol(y_new, (err[:, :3], err[:, 3:]) if erk else err)
+    def err_norm(err):
+        return _err_norm(*((err[:, :3], err[:, 3:]) if erk else err), *inv_tol)
 
-    t = d(t0s)
-    pos0, vel0 = d(pos0s), d(vel0s)
+    t = f.t
     b = t.shape[0]
-    end_t = torch.minimum(d(end_ts), eph.end_s)
-    knots = torch.zeros((b, max_knots + 1, 7), dtype=F64, device=dev)
-    knots[:, :, 0] = torch.inf
-    knots[:, 0] = torch.cat([t[:, None], pos0, vel0], -1)
     rows = torch.arange(b, device=dev)
 
-    y = torch.cat([pos0, vel0], -1) if erk else (pos0, vel0)
-    seg = segment_idx_at(tl, t)
+    y = torch.cat([f.pos0, f.vel0], -1) if erk else (f.pos0, f.vel0)
+    seg = f.seg
     next_h = torch.full_like(t, params.h_init)
     h_try = next_h
     n = torch.zeros(b, dtype=torch.int64, device=dev)
@@ -380,8 +534,7 @@ def propagate_batch(
             k0 = fresh if cache is None else _where(stale, fresh, cache)
             cache, stale = k0, torch.zeros_like(stale)
         y_new, err_vec, cache_new = adaptive._attempt(tab, f, t, y, h, k0)
-        nh, acc, fail = adaptive.control(params, tab.lower_order, h, err_norm(y_new, err_vec),
-                                         y_new)
+        nh, acc, fail = adaptive.control(params, tab.lower_order, h, err_norm(err_vec), y_new)
         n = torch.where(attempting, n + 1, n)
         h_try = torch.where(attempting, nh, h_try)
         ok = attempting & acc & ~fail
@@ -425,13 +578,7 @@ def propagate_batch(
             break
     propagate_batch.iterations += iterations
     propagate_batch.syncs += syncs
-    return PropagationResult(ts=knots[:, :max_knots, 0], pos=knots[:, :max_knots, 1:4],
-                             vel=knots[:, :max_knots, 4:7], count=count, reason=reason,
-                             final_seg=seg)
-
-
-propagate_batch.iterations = 0
-propagate_batch.syncs = 0
+    return _result(knots, count, reason, seg, max_knots)
 
 
 def propagate(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's step and force loops, on one NVIDIA GPU.
 
-    python3 profile_port.py [--loops A,AF,B,C,D,F,F64,FS,G,H,K,P,Y] [--out FILE] [--root DIR]
+    python3 profile_port.py [--loops A,AF,B,C,D,F,F64,FS,G,H,K,M,P,Y] [--out FILE] [--root DIR]
 
 Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 
@@ -48,13 +48,25 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   (startup, kernel 11-f64 a chunk, the fit passes), as ``chip_smoke.py``
   phase 7 runs it; its steps are the year's 52,560;
 * P: fleet64's propagation, ``propagate_ships`` of ``chip_smoke.py``'s 64
-  ships in one batch, as phase 31 runs it; its steps are the fleet loop's
-  iterations (each advances every live ship by one attempt);
+  ships in one batch, as phase 31 runs it, through kernel 14 (the card's
+  route, one launch a host read) and through the eager loop
+  (``spacecraft.propagate_batch_plain``, the route before kernel 14), where
+  that checkout has both; its steps are the fleet loop's iterations (each
+  advances every live ship by one attempt);
+* M: the Mars Transfer Ship's first ``MISSION_COUNT_DAYS`` on 440 days of
+  full_solar_system (``propagate_ship``, B = 1), as phase 30 flies it,
+  through kernel 14 and through the eager loop, steps as P's;
+* W (not a default): wall seconds of whole flights, each through kernel 14
+  and through the eager loop in turns (kernel, eager, kernel): the Mars
+  Transfer Ship to ``MISSION_UNTIL`` on 440 days of full_solar_system, as
+  phase 30 flies it (~2-3 min through the eager loop), and a full replan
+  of it to ``SESSION_UNTIL`` by ``api.Universe`` (respawned, so nothing
+  is reused), as phase 32's first replan; not profiled;
 * S (not a default): kernels 5, 6 and 7 at N = 4096 on each launch geometry
   of ``GEOMETRIES`` (warps a block x blocks a receiver group), device µs per
   call by CUDA-graph replay, not profiled.
 
-``--loops`` picks the paths (default the thirteen profiled ones).  ``--root``
+``--loops`` picks the paths (default the fourteen profiled ones).  ``--root``
 imports the package (and ``chip_smoke.py``'s constants) from another
 checkout, to profile an older commit with this script in the same call;
 the FS loop's force then writes ``out`` only where that checkout's step
@@ -69,6 +81,7 @@ one JSON line per loop and writes all of them, with the card's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -203,7 +216,7 @@ def geometry_sweep(torch, pos, mu, dev) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--loops", default="A,AF,B,C,D,F,F64,FS,G,H,K,P,Y")
+    ap.add_argument("--loops", default="A,AF,B,C,D,F,F64,FS,G,H,K,M,P,Y")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     ap.add_argument("--root", default=str(ROOT))
     args = ap.parse_args(argv)
@@ -397,23 +410,91 @@ def main(argv=None) -> int:
             torch, "full_solar_system_f64_year",
             lambda: eph.generate_ephemeris(fss.state, fss.settings, year, device=dev),
             int(round(year.as_seconds() / fss.settings.dt.as_seconds())), sync))
-    if "P" in paths:
-        from chip_smoke import FLEET_DAYS, FLEET_EPH_DAYS, FLEET_KNOTS, FLEET_SHIPS, _fleet_ships
-        from ephemeris_explorer_tpu_torch import Duration
+    if paths & {"P", "M", "W"}:
+        from chip_smoke import (FLEET_DAYS, FLEET_EPH_DAYS, FLEET_KNOTS, FLEET_SHIPS,
+                                MISSION_COUNT_DAYS, MISSION_EPH_DAYS, MISSION_KNOTS, _fleet_ships)
+        from ephemeris_explorer_tpu_torch import Duration, Epoch
         from ephemeris_explorer_tpu_torch import spacecraft as sc_
 
         fss = scene.load_scene(ROOT / "systems" / "full_solar_system_2433282.5")
+
+        def routes():
+            """(suffix, context) of each fleet-loop route this checkout has:
+            its card route, and the eager loop where the card's route is
+            kernel 14."""
+            out = [("", None)]
+            if hasattr(sc_, "_propagate_batch_kernel"):
+                out.append(("_eager", "eager"))
+            return out
+
+        class Eager:
+            """The card's fleet loop patched to the eager loop for a block."""
+
+            def __enter__(self):
+                self.orig = sc_._propagate_batch_kernel
+                sc_._propagate_batch_kernel = (
+                    lambda tab, eph_, tl, t0s, p0s, v0s, ends, params, max_knots:
+                    sc_.propagate_batch_plain(tab, eph_, tl, t0s, p0s, v0s, ends, params,
+                                              max_knots=max_knots))
+
+            def __exit__(self, *exc):
+                sc_._propagate_batch_kernel = self.orig
+
+        def profile_flight(name, fly):
+            for suffix, how in routes():
+                with Eager() if how == "eager" else contextlib.nullcontext():
+                    sc_.propagate_batch.iterations = 0
+                    fly()
+                    results.append(profile_loop(torch, name + suffix, fly,
+                                                sc_.propagate_batch.iterations, sync))
+
+    if "P" in paths:
         e_f = eph.generate_ephemeris(fss.state, fss.settings, Duration.from_days(FLEET_EPH_DAYS),
                                      device=dev)
         ships = _fleet_ships(fss, e_f, FLEET_SHIPS, FLEET_DAYS)
+        profile_flight("P_fleet64_iteration", lambda: sc_.propagate_ships(
+            e_f, ships, max_knots=FLEET_KNOTS, device=dev))
+    if "M" in paths:
+        e_m = eph.generate_ephemeris(fss.state, fss.settings,
+                                     Duration.from_days(MISSION_EPH_DAYS), device=dev)
+        ship = next(x for x in fss.ships if x.name == "Mars Transfer Ship")
+        until = Epoch.from_offset_seconds(ship.start.as_offset_seconds()
+                                          + MISSION_COUNT_DAYS * 86400.0)
+        profile_flight("M_mission_first_days_iteration", lambda: sc_.propagate_ship(
+            e_m, ship, until=until, max_knots=MISSION_KNOTS, device=dev))
+    if "W" in paths:
+        from chip_smoke import MISSION_UNTIL, SESSION_UNTIL
+        from ephemeris_explorer_tpu_torch import api
 
-        def fleet():
-            sc_.propagate_ships(e_f, ships, max_knots=FLEET_KNOTS, device=dev)
+        u = api.Universe.load(ROOT / "systems" / "full_solar_system_2433282.5", device=dev)
+        u.generate(Duration.from_days(MISSION_EPH_DAYS))
+        mars = next(x for x in u.scene.ships if x.name == "Mars Transfer Ship")
 
-        sc_.propagate_batch.iterations = 0
-        fleet()
-        results.append(profile_loop(torch, "P_fleet64_iteration", fleet,
-                                    sc_.propagate_batch.iterations, sync))
+        def mission():
+            return sc_.propagate_ship(u.ephemeris, mars, until=Epoch.parse(MISSION_UNTIL),
+                                      max_knots=MISSION_KNOTS, device=dev)
+
+        def replan():
+            u.spawn_ship(mars, propagate_now=False)
+            u.set_plan_end(mars.name, Epoch.parse(SESSION_UNTIL), replan=False)
+            return u.replan(mars.name, max_knots=MISSION_KNOTS)
+
+        eager = dict(routes()).get("_eager")
+        for name, fly in (("mission", mission), ("replan", replan)):
+            runs = {}
+            for suffix in ("", "_eager", "") if eager else ("",):
+                with Eager() if suffix else contextlib.nullcontext():
+                    sc_.propagate_batch.iterations = sc_.propagate_batch.syncs = 0
+                    t0 = time.perf_counter()
+                    traj = fly()
+                    sync()
+                    wall = time.perf_counter() - t0
+                r = runs.setdefault(suffix, {"wall_s": [], "knots": len(traj.ts),
+                                             "iterations": sc_.propagate_batch.iterations,
+                                             "host_reads": sc_.propagate_batch.syncs})
+                r["wall_s"].append(wall)
+            for suffix, r in runs.items():
+                results.append({"loop": f"W_{name}{suffix}", **r})
     if "S" in paths:
         sweep = geometry_sweep(torch, pos, mu, dev)
         for r in sweep:

@@ -1,4 +1,4 @@
-"""Kernels 1-13, 1-f64, 2-f64 and 3-f64 against their plain PyTorch versions on an NVIDIA GPU.
+"""Kernels 1-14, 1-f64, 2-f64 and 3-f64 against their plain PyTorch versions on an NVIDIA GPU.
 
 Every test here needs the card: it is marked ``cuda`` and skips (inside a
 fixture) when ``torch.cuda.is_available()`` is false.  The file imports no
@@ -18,7 +18,7 @@ from ephemeris_explorer_tpu_torch.integrators import get
 from ephemeris_explorer_tpu_torch.io import scene
 from ephemeris_explorer_tpu_torch.ops import cuda_elm2, cuda_elm2q, cuda_f32, cuda_gen, cuda_limbs
 from ephemeris_explorer_tpu_torch.ops import cuda_elm2f64, cuda_limbs64, cuda_mixed, cuda_nbody
-from ephemeris_explorer_tpu_torch.ops import cuda_elm2qs, cuda_nbody64
+from ephemeris_explorer_tpu_torch.ops import cuda_elm2qs, cuda_fleet, cuda_nbody64
 from ephemeris_explorer_tpu_torch.ops import cuda_split
 from ephemeris_explorer_tpu_torch.ops import cuda_sym, split
 from ephemeris_explorer_tpu_torch.ops import expansion as ex
@@ -1621,7 +1621,8 @@ def _every_launch() -> dict:
            "gen_scan_f64": cuda_gen.elm2_gen_scan_f64,
            "accel_full3": nbody_full3.pairwise_accel_full3,
            "elm2f64_update_shift": cuda_elm2f64.elm2f64_update_shift,
-           "elm2q_update_shift": cuda_elm2qs.elm2q_update_shift}
+           "elm2q_update_shift": cuda_elm2qs.elm2q_update_shift,
+           "fleet_scan": cuda_fleet.fleet_scan}
     return {k: f.launches for k, f in fns.items()}
 
 
@@ -1635,8 +1636,8 @@ def test_sharded_ensemble_and_fleet_on_card(cuda_device, tmp_path, monkeypatch):
     force kernel 1-f64's rows form, one launch a member a force evaluation,
     its update kernel 2-f64, one launch a step, and no other kernel (F2);
     four ships through
-    make_sharded_fleet_propagator bitwise to propagate_batch, no kernel
-    launched."""
+    make_sharded_fleet_propagator bitwise to propagate_batch, kernel 14
+    alone launched, once a host read of the done flags."""
     from ephemeris_explorer_tpu_torch.ops import nbody
     import torch.distributed as dist
 
@@ -1687,9 +1688,10 @@ def test_sharded_ensemble_and_fleet_on_card(cuda_device, tmp_path, monkeypatch):
         params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3, n_max=10_000)
         fn, place = sh.make_sharded_fleet_propagator(mesh, "Verner87", params, 256)
         before = _every_launch()
+        spacecraft.propagate_batch.syncs = 0
         res = sh.gather_fleet(mesh, fn(*place(packed, tl, *host)))
         torch.cuda.synchronize()
-        assert _new_launches(before) == {}
+        assert _new_launches(before) == {"fleet_scan": spacecraft.propagate_batch.syncs} != {}
         ref = spacecraft.propagate_batch(spacecraft.get_method("Verner87"), packed, tl, *host,
                                          params, max_knots=256)
         assert (res.count > 1).all()
@@ -2015,3 +2017,99 @@ def test_expansion_step_is_two_launches_on_card(cuda_device):
                       device=cuda_device)
     assert torch.equal(c.ddys[0], cuda_limbs64.pairwise_accel_limbs64(
         *(l[0] for l in c.ys[:3]), mu))
+
+
+# kernel 14: the fleet loop.  Ships near Earth on sun_earth_moon, each
+# tableau family with the burns that choose its RHS's form: TNB burns about
+# Earth on every ship, inertial burns on the odd ships, a coast, and TNB
+# burns on the odd ships.
+FLEET_CASES = {"Verner87": "relative", "Verner98": "inertial", "DormandPrince54": "coast",
+               "Fine45": "relative_odd"}
+
+
+def _fleet_inputs(b, burns, span_s, device, n_seg_burns=1):
+    """(packed ephemeris on the card, stacked timelines, t0s, p0s, v0s,
+    ends) of b ships in orbits near the Earth Station's, ``burns`` as in
+    FLEET_CASES."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+    from ephemeris_explorer_tpu_torch.ftime import Duration, Epoch
+
+    sc = scene.load_scene(Path(__file__).resolve().parent.parent / "systems"
+                          / "sun_earth_moon_2433282.5")
+    packed = eph.generate_ephemeris(sc.state, sc.settings, Duration.from_days(40.0),
+                                    device=device).pack(device)
+    base = sc.ships[0]
+    t0 = base.start.as_offset_seconds()
+    index = {"Sun": 0, "Earth": 1, "Moon": 2}
+    tls = []
+    for k in range(b):
+        acc = np.array([2e-3, -1e-3, 5e-4]) * (1.0 + 0.01 * k)
+        relative = burns == "relative" or (burns == "relative_odd" and k % 2)
+        inertial = burns == "inertial" and k % 2
+        ship_burns = [scene.ShipBurn(start=Epoch.from_offset_seconds(t0 + 1800.0 + 97.0 * k + j * 7200.0),
+                                     duration=Duration.from_seconds(300.0), acceleration=acc,
+                                     reference="Earth" if relative else None)
+                      for j in range(n_seg_burns) if relative or inertial]
+        tls.append(spacecraft.build_timeline(ship_burns, index))
+    tl = spacecraft.stack_timelines(tls)
+    k = np.arange(b)
+    p0s = base.position[None] + np.stack([40.0 * k, -25.0 * k, 10.0 * k], -1)
+    v0s = base.velocity[None] * (1.0 + 1e-4 * k)[:, None]
+    return packed, tl, np.full(b, t0), p0s, v0s, t0 + span_s * (1.0 + 0.05 * (k % 3))
+
+
+def _first_difference(a, b) -> str:
+    for name, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y):
+            bad = (x != y).nonzero()[:3].tolist()
+            return f"{name} differs at {bad}"
+    return ""
+
+
+@pytest.mark.parametrize("b", [1, 4, 64])
+@pytest.mark.parametrize("method", list(FLEET_CASES))
+def test_kernel14_matches_plain_on_card(cuda_device, method, b):
+    """Kernel 14 against its plain version, the eager fleet loop, on the
+    card: ts, pos, vel, count, reason and final segment bitwise, at B = 1,
+    4 and 64; kernel 14 alone launched, once a host read."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    packed, tl, t0s, p0s, v0s, ends = _fleet_inputs(b, FLEET_CASES[method], 6 * 3600.0,
+                                                    cuda_device, n_seg_burns=2)
+    params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
+    tab = get(method)
+    before = _every_launch()
+    spacecraft.propagate_batch.syncs = 0
+    k = spacecraft.propagate_batch(tab, packed, tl, t0s, p0s, v0s, ends, params, max_knots=1024)
+    torch.cuda.synchronize()
+    assert _new_launches(before) == {"fleet_scan": spacecraft.propagate_batch.syncs}
+    p = spacecraft.propagate_batch_plain(tab, packed, tl, t0s, p0s, v0s, ends, params,
+                                         max_knots=1024)
+    assert (k.count > 10).all() and (k.reason == spacecraft.DONE_END).all()
+    assert all(torch.equal(x, y) for x, y in zip(k, p)), _first_difference(k, p)
+
+
+def test_kernel14_single_ship_is_its_fleet_row_on_card(cuda_device):
+    """A ship flown alone through kernel 14 is its row of the fleet bitwise
+    (the same batch flags: every ship burns about Earth), and the fleet's
+    short knot buffer ends a ship as DONE_KNOTS_FULL as the plain loop
+    does."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    packed, tl, t0s, p0s, v0s, ends = _fleet_inputs(4, "relative", 6 * 3600.0, cuda_device)
+    params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
+    tab = get("Verner87")
+    fleet = spacecraft.propagate_batch(tab, packed, tl, t0s, p0s, v0s, ends, params,
+                                       max_knots=1024)
+    for i in (0, 3):
+        solo = spacecraft.propagate_batch(tab, packed, spacecraft.Timeline(*(x[i:i + 1] for x in tl)),
+                                          t0s[i:i + 1], p0s[i:i + 1], v0s[i:i + 1], ends[i:i + 1],
+                                          params, max_knots=1024)
+        assert all(torch.equal(x[i], y[0]) for x, y in zip(fleet, solo))
+    short = spacecraft.propagate_batch(tab, packed, tl, t0s, p0s, v0s, ends, params, max_knots=16)
+    plain = spacecraft.propagate_batch_plain(tab, packed, tl, t0s, p0s, v0s, ends, params,
+                                             max_knots=16)
+    assert (short.reason == spacecraft.DONE_KNOTS_FULL).all()
+    assert all(torch.equal(x, y) for x, y in zip(short, plain)), _first_difference(short, plain)
