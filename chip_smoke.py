@@ -154,15 +154,18 @@ them:
   and one step's launches and aten ops (phase 42).  Every expansion step on
   the card is kernel 13 then the force writing the new ring row: phases 11,
   34, 35 and 38 count one launch a scan step;
-* the fleet loop on the card (slice 19): kernel 14, the whole loop of
-  ``spacecraft.propagate_batch`` in one kernel (one warp a ship, up to
-  ``cuda_fleet.ITERATIONS_PER_LAUNCH`` iterations a launch), bitwise to its
-  plain version, the eager loop, at B = 1, 4 and 64 on sun_earth_moon and
-  full_solar_system for Verner87 with TNB burns, Verner98, DormandPrince54
-  and Fine45, with its device time by CUDA events, bound and ptxas report
-  (phase 43).  Every flight on the card takes it: phases 30, 31, 32 and 37
-  hold their flights to kernel 14 alone, one launch a host read of the
-  done flags.
+* the fleet loop on the card (slices 19-20): kernel 14, the whole loop of
+  ``spacecraft.propagate_batch`` in one kernel (one block a ship: its
+  warps evaluate the bodies at every stage time of an attempt at once, one
+  warp runs the stages; up to ``cuda_fleet.ITERATIONS_PER_LAUNCH``
+  iterations a launch), bitwise to its plain version, the eager loop, at B
+  = 1, 4 and 64 on sun_earth_moon and full_solar_system for Verner87 with
+  TNB burns, Verner98, DormandPrince54 and Fine45, and on a flight across
+  a segment boundary, at 33, 65, 600 and 9,500 bodies (the last two past
+  one window of shared memory) and at a tight tolerance, with its device time
+  by CUDA events, bound and ptxas report (phase 43).  Every flight on the
+  card takes it: phases 30, 31, 32 and 37 hold their flights to kernel 14
+  alone, one launch a host read of the done flags.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Each phase prints one line; then the run's total seconds; the line
@@ -460,6 +463,16 @@ FLEET43_SIZES = (1, 4, 64)
 FLEET43_SPAN_S = 6 * 3600.0
 FLEET43_EPH_DAYS = 40.0
 FLEET43_KNOTS = 1024
+# PR 20's cases beside them: a flight across the Moon's first segment
+# boundary on sun_earth_moon (a TNB burn ending exactly on it, so stage times
+# fall on it), 33, 65 and 600 bodies (sun_earth_moon and dust: copies of its
+# bodies' tables at FLEET43_DUST_MU of their mu; past ~9,400 positions a
+# block's shared memory holds, 600 bodies at 16 stages run in windows of
+# stages and 9,500 in one stage's chunks of bodies), and a tight tolerance
+# with a slow shrink (most attempts fail).
+FLEET43_BODIES = (33, 65, 600, 9500)
+FLEET43_DUST_MU = 1e-9
+FLEET43_TIGHT = {"h_init": 600.0, "tol_pos": 1e-10, "tol_vel": 1e-10, "fac_min": 0.98}
 SMS = 132  # an H100 SXM's SMs: a one-block kernel's bound is the card's x SMS
 
 
@@ -714,6 +727,24 @@ def _fleet_ships(sc, eph, n_ships: int, mission_days: float):
                           end=Epoch.from_offset_seconds(t0 + mission_days * 86400.0),
                           position=ep + offset, velocity=ev * dv, burns=burns))
     return ships
+
+
+def _with_dust(packed, n_bodies: int):
+    """``packed`` with bodies added up to ``n_bodies``: copies of its
+    bodies' tables (the same coefficient rows) at FLEET43_DUST_MU of their
+    mu, so that ships fly as they would and every lane holds several
+    bodies."""
+    import torch
+
+    from ephemeris_explorer_tpu_torch.ephemeris import PackedEphemeris
+
+    n = packed.mus.shape[0]
+    idx = torch.arange(n_bodies - n, device=packed.mus.device) % n
+    return PackedEphemeris(
+        mus=torch.cat([packed.mus, packed.mus[idx] * FLEET43_DUST_MU]),
+        **{k: torch.cat([getattr(packed, k), getattr(packed, k)[idx]])
+           for k in ("starts", "intervals", "offsets", "nsegs")},
+        coeffs=packed.coeffs)
 
 
 def _traj_km(a, b, fracs=(0.1, 0.5, 0.9)) -> float:
@@ -4650,11 +4681,13 @@ def main(argv=None) -> int:
                                           port.Duration.from_days(FLEET43_EPH_DAYS), device=dev))
             scenes43[name] = (sc43, e43)
 
-        def fleet43_inputs(sc43, e43, b, burns):
+        def fleet43_inputs(sc43, e43, b, burns, t0=None, burn_end=None):
             """(stacked timelines, t0s, p0s, v0s, ends) of b ships in low
-            Earth orbits at the scene's epoch, ``burns`` as in FLEET43_CASES."""
+            Earth orbits at ``t0`` (the scene's epoch), ``burns`` as in
+            FLEET43_CASES; with ``burn_end``, each ship's first burn ends
+            there."""
             index = {n: i for i, n in enumerate(e43.names)}
-            t0 = sc43.state.epoch.as_offset_seconds()
+            t0 = sc43.state.epoch.as_offset_seconds() if t0 is None else t0
             ep, ev = e43["Earth"].state_vector(t0)
             r = 7000.0
             v_circ = float(np.sqrt(sc43.state.bodies[index["Earth"]].mu / r))
@@ -4663,12 +4696,14 @@ def main(argv=None) -> int:
                 acc = np.array([2e-3, -1e-3, 5e-4]) * (1.0 + 0.01 * k)
                 relative = burns == "relative" or (burns == "relative_odd" and k % 2)
                 inertial = burns == "inertial" and k % 2
+                starts = [t0 + 1800.0 + 97.0 * k + j * 7200.0 for j in range(2)]
+                if burn_end is not None:
+                    starts[0] = burn_end - 300.0
                 tls.append(sc_.build_timeline([
-                    scene.ShipBurn(start=port.Epoch.from_offset_seconds(
-                                       t0 + 1800.0 + 97.0 * k + j * 7200.0),
+                    scene.ShipBurn(start=port.Epoch.from_offset_seconds(st),
                                    duration=port.Duration.from_seconds(300.0), acceleration=acc,
                                    reference="Earth" if relative else None)
-                    for j in range(2) if relative or inertial], index))
+                    for st in starts if relative or inertial], index))
             k = np.arange(b)
             p0s = ep[None] + np.stack([r + 40.0 * k, -25.0 * k, 10.0 * k], -1)
             v0s = ev[None] + np.stack([0.0 * k, v_circ * (1.0 + 1e-4 * k), 0.0 * k], -1)
@@ -4700,51 +4735,60 @@ def main(argv=None) -> int:
             return (out, sum(a.elapsed_time(b_) for a, b_ in spans), len(spans),
                     torch.stack(iters).sum(0).cpu().numpy())
 
+        def case43(scene_name, packed, method, burns, b, inputs, params=params43,
+                   done=sc_.DONE_END, **extra):
+            """Kernel 14 against the plain loop on one batch: bitwise, kernel
+            14 alone once a host read, and its device time by CUDA events."""
+            tab43 = get(method)
+
+            def fly(route=sc_.propagate_batch):
+                return route(tab43, packed, *inputs, params, max_knots=FLEET43_KNOTS)
+
+            reset_counts()
+            sc_.propagate_batch.syncs = sc_.propagate_batch.iterations = 0
+            k43 = fly()
+            torch.cuda.synchronize()
+            launched = read_counts()
+            syncs, iters = sc_.propagate_batch.syncs, sc_.propagate_batch.iterations
+            k43b, dev_ms, n_launch, ship_iters = timed_fleet(fly)
+            sc_.propagate_batch.iterations = 0
+            t0 = time.perf_counter()
+            p43 = fly(sc_.propagate_batch_plain)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_iters = sc_.propagate_batch.iterations
+            same = all(torch.equal(x, y) for x, y in zip(k43, p43))
+            again = all(torch.equal(x, y) for x, y in zip(k43, k43b))
+            err = max(((x - y).abs().max().item() for x, y in
+                       ((k43.pos, p43.pos), (k43.vel, p43.vel))
+                       if torch.isfinite(x).all() and torch.isfinite(y).all()),
+                      default=float("nan"))
+            check(fleet_only(launched, syncs) and same and again
+                  and bool((k43.count > 10).all())
+                  and bool((k43.reason == done).all()),
+                  f"phase 43: kernel 14 on {scene_name}, {method} at B = {b} {extra}: launches "
+                  f"{launched} in {syncs} reads, bitwise to plain {same}, to itself "
+                  f"{again}, counts {k43.count.tolist()[:8]}, reasons "
+                  f"{k43.reason.tolist()[:8]}")
+            case = {"scene": scene_name, "method": method, "burns": burns, "b": b,
+                    "n_bodies": int(packed.mus.shape[0]), **extra,
+                    "bitwise": same, "knots": int(k43.count.sum()),
+                    "launches": launched["fleet_scan"], "iterations": iters,
+                    "ship_iterations": int(ship_iters.sum()),
+                    "device_ms": dev_ms, "device_us_per_launch": dev_ms * 1e3 / n_launch,
+                    "device_us_per_iteration": dev_ms * 1e3 / iters,
+                    "plain_ms": plain_ms, "plain_iterations": plain_iters,
+                    "plain_ms_per_iteration": plain_ms / plain_iters}
+            return case, (k43, p43, err, dev_ms, plain_ms, plain_iters, ship_iters, fly)
+
         cases43 = []
         for scene_name, (sc43, e43) in scenes43.items():
             packed = e43.pack(dev)
             for method, burns in FLEET43_CASES.items():
-                tab43 = get(method)
                 for b in FLEET43_SIZES:
                     inputs = fleet43_inputs(sc43, e43, b, burns)
-
-                    def fly(route=sc_.propagate_batch):
-                        return route(tab43, packed, *inputs, params43, max_knots=FLEET43_KNOTS)
-
-                    reset_counts()
-                    sc_.propagate_batch.syncs = sc_.propagate_batch.iterations = 0
-                    k43 = fly()
-                    torch.cuda.synchronize()
-                    launched = read_counts()
-                    syncs, iters = sc_.propagate_batch.syncs, sc_.propagate_batch.iterations
-                    k43b, dev_ms, n_launch, ship_iters = timed_fleet(fly)
-                    sc_.propagate_batch.iterations = 0
-                    t0 = time.perf_counter()
-                    p43 = fly(sc_.propagate_batch_plain)
-                    torch.cuda.synchronize()
-                    plain_ms = (time.perf_counter() - t0) * 1e3
-                    plain_iters = sc_.propagate_batch.iterations
-                    same = all(torch.equal(x, y) for x, y in zip(k43, p43))
-                    again = all(torch.equal(x, y) for x, y in zip(k43, k43b))
-                    err = max(((x - y).abs().max().item() for x, y in
-                               ((k43.pos, p43.pos), (k43.vel, p43.vel))
-                               if torch.isfinite(x).all() and torch.isfinite(y).all()),
-                              default=float("nan"))
-                    check(fleet_only(launched, syncs) and same and again
-                          and bool((k43.count > 10).all())
-                          and bool((k43.reason == sc_.DONE_END).all()),
-                          f"phase 43: kernel 14 on {scene_name}, {method} at B = {b}: launches "
-                          f"{launched} in {syncs} reads, bitwise to plain {same}, to itself "
-                          f"{again}, counts {k43.count.tolist()[:8]}, reasons "
-                          f"{k43.reason.tolist()[:8]}")
-                    case = {"scene": scene_name, "method": method, "burns": burns, "b": b,
-                            "bitwise": same, "knots": int(k43.count.sum()),
-                            "launches": launched["fleet_scan"], "iterations": iters,
-                            "ship_iterations": int(ship_iters.sum()),
-                            "device_ms": dev_ms, "device_us_per_launch": dev_ms * 1e3 / n_launch,
-                            "device_us_per_iteration": dev_ms * 1e3 / iters,
-                            "plain_ms": plain_ms, "plain_iterations": plain_iters,
-                            "plain_ms_per_iteration": plain_ms / plain_iters}
+                    case, (k43, p43, err, dev_ms, plain_ms, plain_iters, ship_iters, fly) = (
+                        case43(scene_name, packed, method, burns, b, inputs))
                     if method == "Verner87" and scene_name.startswith("full") and b in (1, 64):
                         # bytes: the segments the flights span, each body's
                         # tables, the knots written, the ships' start and end
@@ -4777,6 +4821,35 @@ def main(argv=None) -> int:
                                 kernel_record(err, dev_ms, plain_ms, b43))
                             record["fleet_scan"]["bound_b_sms_ms"] = case["bound_b_sms_ms"]
                     cases43.append(case)
+
+        # PR 20's cases (FLEET43_BODIES ...): the Moon's first segment
+        # boundary on sun_earth_moon, a TNB burn ending exactly on it
+        sem43, e_sem = scenes43["sun_earth_moon_2433282.5"]
+        p_sem = e_sem.pack(dev)
+        t_b = float(p_sem.starts[2] + p_sem.intervals[2])
+        for method in ("Verner87", "Fine45"):
+            inputs = fleet43_inputs(sem43, e_sem, 4, "relative", t0=t_b - 1800.0, burn_end=t_b)
+            case, (k43, *_) = case43("sun_earth_moon_2433282.5", p_sem, method, "relative", 4,
+                                     inputs, straddles=t_b)
+            ts = k43.ts[torch.isfinite(k43.ts)]
+            case["knots_before_at_after"] = [int((ts < t_b).sum()), int((ts == t_b).sum()),
+                                             int((ts > t_b).sum())]
+            check(all(case["knots_before_at_after"]),
+                  f"phase 43: the flight does not cross the boundary {case}")
+            cases43.append(case)
+        for n_bodies in FLEET43_BODIES:
+            dusty = _with_dust(p_sem, n_bodies)
+            method = "Verner98" if n_bodies > 100 else "Verner87"
+            case, _ = case43("sun_earth_moon_2433282.5", dusty, method, "relative", 4,
+                             fleet43_inputs(sem43, e_sem, 4, "relative"))
+            cases43.append(case)
+        tight = AdaptiveParams(**FLEET43_TIGHT)
+        case, _ = case43("sun_earth_moon_2433282.5", p_sem, "Verner87", "relative", 4,
+                         fleet43_inputs(sem43, e_sem, 4, "relative"), params=tight,
+                         tight=FLEET43_TIGHT)
+        case["attempts_failed_share"] = 1.0 - case["knots"] / case["ship_iterations"]
+        check(case["attempts_failed_share"] > 0.5, f"phase 43: the tight case {case}")
+        cases43.append(case)
         ptxas = {}
         for ln in ptxas_of("fleet_scan_kernel"):
             j = re.search(r"fleet_scan_kernelILi(\d+)ELb([01])E", ln)
@@ -4850,7 +4923,7 @@ def main(argv=None) -> int:
         "launches: the Mars mission's flight (phase 30); ms, plain_ms and bound_ms: phase 43's "
         "B = 1 Verner87 case on full_solar_system, the whole propagation (device ms by CUDA "
         "events over its launches), the bound scaled to the ship-iterations run; "
-        "bound_b_sms_ms: one ship is one warp on one SM")
+        "bound_b_sms_ms: one ship is one block on one SM")
     by_name["fleet_scan"]["bound_b_sms_ms"] = record["fleet_scan"]["bound_b_sms_ms"]
     # launches on the other paths that run a form (its main path's are
     # "launches"): kernel 11-f64's in phase 7 forward and backward and in the

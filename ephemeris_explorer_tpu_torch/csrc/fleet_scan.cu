@@ -1,4 +1,4 @@
-// Kernel 14: the spacecraft fleet loop, one warp a ship.
+// Kernel 14: the spacecraft fleet loop, one block a ship.
 //
 // Corresponds to no Pallas kernel.  It replaces the JAX package's
 // ephemeris_explorer_tpu/spacecraft.py:253 `propagate`, whose nested
@@ -18,27 +18,28 @@
 //     the burn, its frame and whether it burns;
 //   * an advance's pre-checks (at the bound, t + next_h == t, n > n_max);
 //   * otherwise one attempt of the tableau at h = min(h_try, bound - t):
-//     the stages' states y + sum_j (h a_sj) k_j, skipping zero
-//     coefficients, the RHS at t + h c_s (an FSAL tableau's stage 0 is the
-//     cache, or a fresh evaluation at the ship's state where the cache is
-//     stale), the new state and the embedded error, the AbsTol norm (each
-//     error times the host's 1/tol) and the controller
+//     the bodies at every stage time t + h c_s (spacecraft.py
+//     `_stage_bodies`), the stages' states y + sum_j (h a_sj) k_j, skipping
+//     zero coefficients, the RHS (an FSAL tableau's stage 0 is the cache, or
+//     a fresh evaluation at the ship's state, on stage 0's bodies, where the
+//     cache is stale), the new state and the embedded error, the AbsTol norm
+//     (each error times the host's 1/tol) and the controller
 //     (integrators/adaptive.py `control`: fac err^(-1/k) with the exponent
 //     formed on the host, torch's NaN-propagating clamps);
 //   * the commit, the knot append straight to device memory, the end
 //     reasons, the segment change with its reset.
 //
-// The RHS at stage time ts and ship state (p, v): each body's segment
-// (ephemeris.py `_segments`: ceil(local / interval) - 1 as int64, clamped)
-// and tau, Horner on its (9, 3) coefficients (ops/polyfit.py `horner`, or
-// `horner_and_deriv` with the velocity where the batch has body-relative
-// burns: then the positions come from that form too), the point-mass
+// The bodies at stage time ts: each body's segment (ephemeris.py
+// `_segments`: ceil(local / interval) - 1 as int64, clamped) and tau, Horner
+// on its (9, 3) coefficients (ops/polyfit.py `horner`, or `horner_and_deriv`
+// with the velocity where the batch has body-relative burns: then the
+// positions come from that form too).  The RHS at (p, v): the point-mass
 // gravity d = b - p, r^2 = (dx dx + dy dy) + dz dz, inv_r = rsqrt(r^2)
-// (CUDA's f64 rsqrt, the function torch's CUDA rsqrt calls), w = mu
-// (inv_r inv_r) inv_r, a = sum d w; then, where the batch burns, the burn:
-// TNB about the frame body where the segment is body-relative (each norm
-// the square root of a left-to-right sum, the cross products and the
-// matrix product written out), else as given, added where the ship burns.
+// (CUDA's f64 rsqrt, the function torch's CUDA rsqrt calls), w = mu (inv_r
+// inv_r) inv_r, a = sum d w; then, where the batch burns, the burn: TNB about
+// the frame body where the segment is body-relative (each norm the square
+// root of a left-to-right sum, the cross products and the matrix product
+// written out), else as given, added where the ship burns.
 //
 // Sum over bodies: lane l adds bodies l, l + 32, ... to 0.0 in turn (a lane
 // past N adds nothing, so it holds an exact 0.0), then a halving tree adds
@@ -49,35 +50,70 @@
 // (the library is also built with --fmad=false); torch's eager CUDA
 // kernels run one operation each, so they never contract either.
 //
-// What bounds it on an H100: latency.  A ship is one warp, and its attempt
-// a serial chain of 6-16 stages, each a segment lookup, a 9-deep Horner
-// chain, the gravity's rsqrt and divide-free chain, a 5-level shuffle tree
-// and, with relative burns, three square roots and three divisions.  At 32
-// bodies (full_solar_system) each lane holds one body; a fleet of B ships
-// is B blocks on min(B, 132) SMs.  chip_smoke.py phase 43 measures ~2 us a
-// stage on an H100 80GB HBM3 at 700 W (24-29 us an iteration at 13-16
-// stages), 1-1.4% of the operations bound of the SMs it runs on.
+// What bounds it on an H100: latency.  An attempt is a serial chain of 6-16
+// stages, each waiting on the one before; a ship's chain runs on one warp,
+// and a fleet of B ships on min(B, 132) SMs.  The first design (one warp a
+// ship) ran each stage's ephemeris evaluation (two divisions, a dependent
+// load, a 9-deep Horner chain) inside the chain and took ~2 us a stage
+// (chip_smoke.py phase 43, H100 80GB HBM3 at 700 W).
 //
-// Design: one block of 32 threads a ship.  The tableau (stage times and
-// coefficient tables, 592 doubles) is read into shared memory once a
-// launch; the stage derivatives k_s (up to 16 x 6 doubles) live in shared
-// memory, written by lane 0 and read by every lane after a __syncwarp;
-// every other value of the ship's state is held in registers, the same on
-// every lane (the scalar logic runs redundantly on all 32).  The stage loop
-// is not unrolled, so the RHS is inlined once; its count is a template
-// parameter (the stage counts of the port's adaptive tableaux: 6, 7, 9, 13,
-// 16 for ERK, 7 for ERKNG).  The state and counters go back to device
-// memory at the end of the launch (cuda_fleet.py's row layout), with the
-// iterations the ship ran in it.  __launch_bounds__(32, 1) lets ptxas take
-// the registers the attempt needs (178-184 for sm_90a, no spills; with the
-// block size alone it kept 128 and spilled 16-28 bytes at 7 to 16 stages).
+// Design: one block of W = 8 warps a ship, so that fleet64 is one block an
+// SM.  A fleet past the card's 132 SMs runs in waves; no path flies one (the
+// largest is fleet64).  1, 2 and 4 warps measured slower at B = 1 and 64
+// on the same card (PERF.md, kernel 14).
+//
+//   * The bodies leave the chain.  As soon as an attempt's h is known, warp
+//     0 (the lead) posts (t, h) and the block evaluates the bodies at all
+//     its stage times at once, S x N independent chains spread over the W x
+//     32 threads (two rounds, ~2.6 us, at 13 stages and 32 bodies), into
+//     shared memory: positions [3][S][N], the frame body's state [S][6].
+//     Two barriers an attempt (named barrier 1: post, then done).  Where
+//     [3][S][N] does not fit the 227 KB a block may opt into (S N > ~9,400
+//     positions: ~590 bodies at 16 stages), the same protocol evaluates the
+//     stages in windows of G stages, and past one stage a window, in chunks
+//     of bodies (multiples of 32, so every lane keeps its bodies' order).
+//   * Each thread keeps its body's tables (start, interval, nsegs - 1,
+//     offset; the lead lane's mu) in registers for the launch, and the
+//     ship's timeline row until its segment changes; the ephemeris pointers
+//     are read through the read-only path (__ldg).
+//   * The lead warp runs the chain, every lane the scalar logic, but a
+//     stage's state sum, the attempt's new state and its error run one
+//     component a lane (lanes 0-5), then a shuffle gives every lane the six;
+//     the TNB frame normalises x on lanes 0-2 and y on 3-5 at once, then z,
+//     and is issued between the levels of the lane-sum trees so that its
+//     square roots and divisions overlap the shuffles.
+//   * The tableau (592 doubles) is read into shared memory once a launch;
+//     the stage derivatives k_s (up to 16 x 6) stay in shared memory,
+//     written by lane 0 and read by every lane after a __syncwarp.
+//
+// Three other designs measured slower on the same card by
+// tools/fleet_scan_timeline.py, which stamps clock64 at the parts of an
+// iteration (tools/fleet_scan_clocks.patch, applied to a copy of this file;
+// an edit here that the patch's context no longer matches needs the patch
+// made again; Verner87 with TNB burns on full_solar_system, H100 80GB
+// HBM3 at 700 W): helpers that evaluate stage
+// by stage while the lead runs, each stage's readiness a shared-memory
+// count behind a block fence; the stages' states, the new state and the
+// error summed term by term as each stage ends; the evaluation out of line
+// (__noinline__).
+//
+// The stage loop is not unrolled, so the RHS is inlined once; its count is a
+// template parameter (the stage counts of the port's adaptive tableaux: 6,
+// 7, 9, 13, 16 for ERK, 7 for ERKNG).  The state and counters go back to
+// device memory at the end of the launch (cuda_fleet.py's row layout), with
+// the iterations the ship ran in it.  __launch_bounds__(256, 1) leaves ptxas
+// up to 255 registers a thread (phase 43 checks that it spills none).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kLanes = 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = kLanes * kWarps;
 constexpr int kMaxStages = 16;
 constexpr int kCoefs = 9;                  // ops/polyfit.py MAX_COEFFS
 constexpr int kSegDoubles = kCoefs * 3;
@@ -98,6 +134,10 @@ constexpr int kISeg = 0, kICount = 1, kIReason = 2, kIN = 3, kIInAdv = 4, kIStal
 // spacecraft.py DONE_*, FRAME_RELATIVE
 constexpr long long kDoneEnd = 0, kDoneFull = 1, kDoneError = 2;
 constexpr long long kRelative = 1;
+// shared memory a body position takes in a window
+constexpr int kSlotBytes = 3 * sizeof(double);
+// devices whose window size is kept (window_slots)
+constexpr int kMaxDevices = 64;
 
 struct Params {
   double h_init, h_max, fac, fac_min, fac_max, inv_tol_pos, inv_tol_vel, expo;
@@ -124,6 +164,20 @@ struct Fleet {
   int n_seg;
 };
 
+// a window of the bodies' evaluation: stages [s0, s1) and bodies [c0, c1)
+// at (t, h), or the end of the launch
+struct Window {
+  double t, h;
+  long long fb;
+  int s0, s1, c0, c1, stop;
+};
+
+// a thread's body tables, read once a launch
+struct Tables {
+  double start, interval;
+  long long last, offset;
+};
+
 __device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double dsub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double dmul(double a, double b) { return __dmul_rn(a, b); }
@@ -137,18 +191,23 @@ __device__ __forceinline__ double tmax(double a, double b) {
   return a != a ? a : (b != b ? b : fmax(a, b));
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = kLanes / 2; off >= 1; off /= 2) v = dadd(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return __shfl_sync(0xffffffffu, v, 0);
+__device__ __forceinline__ double shfl(double v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
 }
 
-// v / |v|, |v| the square root of a left-to-right sum (spacecraft.py `_unit`)
-__device__ __forceinline__ void unit3(double (&v)[3]) {
-  const double n = __dsqrt_rn(dadd(dadd(dmul(v[0], v[0]), dmul(v[1], v[1])), dmul(v[2], v[2])));
-  v[0] = ddiv(v[0], n);
-  v[1] = ddiv(v[1], n);
-  v[2] = ddiv(v[2], n);
+// one level of the three halving trees
+__device__ __forceinline__ void tree_level(double& ax, double& ay, double& az, int off) {
+  ax = dadd(ax, __shfl_xor_sync(0xffffffffu, ax, off));
+  ay = dadd(ay, __shfl_xor_sync(0xffffffffu, ay, off));
+  az = dadd(az, __shfl_xor_sync(0xffffffffu, az, off));
+}
+
+// v[k] with k a runtime index, without local memory
+__device__ __forceinline__ double pick(const double (&v)[6], int k) {
+  double r = v[0];
+#pragma unroll
+  for (int c = 1; c < 6; ++c) r = k == c ? v[c] : r;
+  return r;
 }
 
 // a x b (spacecraft.py `_cross`)
@@ -159,103 +218,123 @@ __device__ __forceinline__ void cross3(const double (&a)[3], const double (&b)[3
   c[2] = dsub(dmul(a[0], b[1]), dmul(a[1], b[0]));
 }
 
-// The ship's acceleration at stage time ts and state (p, v), on every lane
-// (spacecraft.py `_make_rhs`'s `total`).
-__device__ __forceinline__ void rhs(const Eph& e, const Params& prm, double ts,
-                                    const double (&p)[3], const double (&v)[3],
-                                    const double (&burn)[3], bool relative, bool burning,
-                                    long long fb, int lane, double (&acc)[3]) {
-  double ax = 0.0, ay = 0.0, az = 0.0;
-  double fp[3] = {0.0, 0.0, 0.0}, fv[3] = {0.0, 0.0, 0.0};
-  for (int i = lane; i < e.n; i += kLanes) {
-    const double iv = e.intervals[i];
-    const double local = dsub(ts, e.starts[i]);
-    long long idx = static_cast<long long>(ceil(ddiv(local, iv))) - 1;
-    idx = idx < 0 ? 0 : idx;
-    const long long last = e.nsegs[i] - 1;
-    idx = idx < last ? idx : last;
-    const double tau = ddiv(dsub(local, dmul(iv, static_cast<double>(idx))), iv);
-    const double* c = e.coeffs + (e.offsets[i] + idx) * kSegDoubles;
-    double b[3];
-    if (prm.frames) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        double val = c[(kCoefs - 1) * 3 + k];
-        double der = val;
-#pragma unroll
-        for (int d = kCoefs - 2; d >= 1; --d) {
-          val = dadd(dmul(val, tau), c[d * 3 + k]);
-          der = dadd(dmul(der, tau), val);
-        }
-        val = dadd(dmul(val, tau), c[k]);
-        b[k] = val;
-        if (i == fb) {
-          fp[k] = val;
-          fv[k] = ddiv(der, iv);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        double out = dmul(c[(kCoefs - 1) * 3 + k], 0.0);
-#pragma unroll
-        for (int d = kCoefs - 1; d >= 0; --d) out = dadd(dmul(out, tau), c[d * 3 + k]);
-        b[k] = out;
-      }
-    }
-    const double dx = dsub(b[0], p[0]), dy = dsub(b[1], p[1]), dz = dsub(b[2], p[2]);
-    const double inv_r = rsqrt(dadd(dadd(dmul(dx, dx), dmul(dy, dy)), dmul(dz, dz)));
-    const double w = dmul(e.mus[i], dmul(dmul(inv_r, inv_r), inv_r));
-    ax = dadd(ax, dmul(dx, w));
-    ay = dadd(ay, dmul(dy, w));
-    az = dadd(az, dmul(dz, w));
-  }
-  acc[0] = warp_sum(ax);
-  acc[1] = warp_sum(ay);
-  acc[2] = warp_sum(az);
-  if (!prm.burns) return;
-  double man[3] = {burn[0], burn[1], burn[2]};
-  if (prm.frames) {
-    const int src = static_cast<int>(fb & (kLanes - 1));
+// the square root of a left-to-right sum of squares (spacecraft.py `_unit`)
+__device__ __forceinline__ double norm3(double a, double b, double c) {
+  return __dsqrt_rn(dadd(dadd(dmul(a, a), dmul(b, b)), dmul(c, c)));
+}
+
+__device__ __forceinline__ void bar_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// One body at stage time ts: its position into out[0], out[stride],
+// out[2 stride], and where it is the frame body its (position, velocity)
+// into fs.
+__device__ __forceinline__ void eval_body(const double* __restrict__ coeffs, double ts,
+                                          const Tables& tb, bool frames, bool is_fb,
+                                          double* out, int stride, double* fs) {
+  const double iv = tb.interval;
+  const double local = dsub(ts, tb.start);
+  long long idx = static_cast<long long>(ceil(ddiv(local, iv))) - 1;
+  idx = idx < 0 ? 0 : idx;
+  idx = idx < tb.last ? idx : tb.last;
+  const double tau = ddiv(dsub(local, dmul(iv, static_cast<double>(idx))), iv);
+  const double* c = coeffs + (tb.offset + idx) * kSegDoubles;
+  if (frames) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      fp[k] = __shfl_sync(0xffffffffu, fp[k], src);
-      fv[k] = __shfl_sync(0xffffffffu, fv[k], src);
+      double val = __ldg(c + (kCoefs - 1) * 3 + k);
+      double der = val;
+#pragma unroll
+      for (int d = kCoefs - 2; d >= 1; --d) {
+        val = dadd(dmul(val, tau), __ldg(c + d * 3 + k));
+        der = dadd(dmul(der, tau), val);
+      }
+      val = dadd(dmul(val, tau), __ldg(c + k));
+      out[k * stride] = val;
+      if (is_fb) {
+        fs[k] = val;
+        fs[3 + k] = ddiv(der, iv);
+      }
     }
-    if (relative) {
-      double rp[3], x[3], y[3], z[3];
+  } else {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        rp[k] = dsub(p[k], fp[k]);
-        x[k] = dsub(v[k], fv[k]);
-      }
-      cross3(rp, x, y);
-      unit3(x);
-      unit3(y);
-      cross3(x, y, z);
-      unit3(z);
+    for (int k = 0; k < 3; ++k) {
+      double val = dmul(__ldg(c + (kCoefs - 1) * 3 + k), 0.0);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        man[k] = dadd(dadd(dmul(x[k], burn[0]), dmul(z[k], burn[1])), dmul(y[k], burn[2]));
-      }
+      for (int d = kCoefs - 1; d >= 0; --d) val = dadd(dmul(val, tau), __ldg(c + d * 3 + k));
+      out[k * stride] = val;
     }
   }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) acc[k] = dadd(acc[k], burning ? man[k] : 0.0);
+}
+
+__device__ __forceinline__ Tables tables_of(const Eph& e, int i) {
+  return Tables{__ldg(e.starts + i), __ldg(e.intervals + i), __ldg(e.nsegs + i) - 1,
+                __ldg(e.offsets + i)};
+}
+
+// A window's evaluation, every thread of the block its share: for N <= 32,
+// lane l takes body l % N (32 / N copies of each body a warp, each its own
+// stages); above, lane l takes bodies l, l + 32, ... of the window.  Slot
+// (k, s, i) is sb[(k G + s - s0) C + i - c0].
+__device__ void eval_window(const Eph& e, const double* tc, const Window& w, bool frames,
+                            const Tables& mine, double* sb, int G, int C, double (*fs)[6],
+                            int warp, int lane) {
+  const int n = e.n;
+  const int stride = G * C;
+  if (n <= kLanes) {
+    const int copies = kLanes / n;
+    if (lane >= copies * n) return;
+    const int i = lane % n;
+    for (int s = w.s0 + warp * copies + lane / n; s < w.s1; s += kWarps * copies) {
+      const double ts = dadd(w.t, dmul(w.h, tc[s]));
+      eval_body(e.coeffs, ts, mine, frames, i == w.fb, sb + (s - w.s0) * C + i, stride, fs[s]);
+    }
+    return;
+  }
+  for (int s = w.s0 + warp; s < w.s1; s += kWarps) {
+    const double ts = dadd(w.t, dmul(w.h, tc[s]));
+    for (int i = w.c0 + lane; i < w.c1; i += kLanes) {
+      eval_body(e.coeffs, ts, i == lane ? mine : tables_of(e, i), frames, i == w.fb,
+                sb + (s - w.s0) * C + (i - w.c0), stride, fs[s]);
+    }
+  }
 }
 
 template <int S, bool kNystrom>
-__global__ void __launch_bounds__(kLanes, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
                   double* __restrict__ fstate, long long* __restrict__ istate,
-                  double* __restrict__ knots, int n_ships, int max_knots, int budget) {
+                  double* __restrict__ knots, int n_ships, int max_knots, int budget, int G,
+                  int C) {
+  extern __shared__ double sb[];           // [3][G][C] body positions
   __shared__ double s_tab[kTabLen];
-  __shared__ double ks[S][6];
-  const int lane = threadIdx.x;
+  __shared__ double ks[S][6];              // the stage derivatives k_s
+  __shared__ double fs[S][6];              // the frame body's (position, velocity)
+  __shared__ Window cmd;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
   const int ship = blockIdx.x;
-  for (int i = lane; i < kTabLen; i += kLanes) s_tab[i] = tab[i];
-  __syncwarp();
+  const int n = e.n;
+  for (int i = threadIdx.x; i < kTabLen; i += kThreads) s_tab[i] = tab[i];
+  // this thread's body in the evaluation (and the lead lane's in the sums)
+  const int body = n <= kLanes ? (n > 0 ? lane % n : 0) : lane;
+  const Tables mine = n > 0 ? tables_of(e, body) : Tables{0.0, 1.0, 0, 0};
+  const double mu_lane = lane < n ? __ldg(e.mus + lane) : 0.0;
+  __syncthreads();
   const double* tc = s_tab + kTabC;
+  const bool frames = prm.frames != 0;
+
+  if (warp != 0) {  // the helpers: evaluate each window the lead posts
+    for (;;) {
+      bar_sync(kThreads);
+      const Window w = cmd;
+      if (w.stop) return;
+      eval_window(e, tc, w, frames, mine, sb, G, C, fs, warp, lane);
+      bar_sync(kThreads);
+    }
+  }
+
   const double* ta = s_tab + kTabA;
   const double* tav = s_tab + kTabAV;
   const double* tb = s_tab + kTabB;
@@ -276,27 +355,54 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
   long long seg = istate[kISeg * B + ship];
   long long count = istate[kICount * B + ship];
   long long reason = istate[kIReason * B + ship];
-  long long n = istate[kIN * B + ship];
+  long long n_att = istate[kIN * B + ship];
   bool in_adv = istate[kIInAdv * B + ship] != 0;
   bool stale = istate[kIStale * B + ship] != 0;
   bool done = istate[kIDone * B + ship] != 0;
   const double end_t = fl.end_t[ship];
   double* kn = knots + static_cast<size_t>(ship) * (max_knots + 1) * 7;
 
+  // the lane's component in the one-component-a-lane sums: ERK y[c]; ERKNG
+  // lanes 0-2 a position y[k3] (its velocity y[3 + k3] beside it), 3-5 a
+  // velocity
+  const int c6 = lane % 6;
+  const int k3 = c6 % 3;
+  const bool pos_lane = c6 < 3;
+  double yc = pick(y, c6), yv = pick(y, 3 + k3);
+
+  // the ship's timeline row, read again when its segment changes
+  long long row_sc = -1, fb = 0;
+  double row_end = 0.0, burn[3] = {0.0, 0.0, 0.0};
+  bool relative = false, burning = false;
+
+  // post a window, evaluate the lead warp's share, wait for the block
+  auto window = [&](double h, int s0, int s1, int c0, int c1) {
+    const Window w{t, h, fb, s0, s1, c0, c1, 0};
+    if (lane == 0) cmd = w;
+    bar_sync(kThreads);
+    eval_window(e, tc, w, frames, mine, sb, G, C, fs, 0, lane);
+    bar_sync(kThreads);
+  };
+
   int it = 0;
   for (; it < budget && !done; ++it) {
     const long long sc = seg < fl.n_seg - 1 ? seg : fl.n_seg - 1;
-    const size_t row = static_cast<size_t>(ship) * fl.n_seg + sc;
-    const double bound = tmin(fl.ends[row], end_t);
-    const double burn[3] = {fl.accels[row * 3], fl.accels[row * 3 + 1], fl.accels[row * 3 + 2]};
-    const bool relative = fl.kind[row] == kRelative;
-    const bool burning = burn[0] != 0.0 || burn[1] != 0.0 || burn[2] != 0.0;
-    const long long fb = fl.body[row];
+    if (sc != row_sc) {
+      const size_t row = static_cast<size_t>(ship) * fl.n_seg + sc;
+      row_sc = sc;
+      row_end = fl.ends[row];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) burn[k] = fl.accels[row * 3 + k];
+      relative = fl.kind[row] == kRelative;
+      burning = burn[0] != 0.0 || burn[1] != 0.0 || burn[2] != 0.0;
+      fb = fl.body[row];
+    }
+    const double bound = tmin(row_end, end_t);
 
     const bool start = !in_adv;
     const bool pre_bound = start && t >= bound;
     const bool pre_under = start && !pre_bound && dadd(t, next_h) == t;
-    const bool pre_stop = pre_bound || pre_under || (start && n > prm.n_max);
+    const bool pre_stop = pre_bound || pre_under || (start && n_att > prm.n_max);
     if (start) h_try = next_h;
     bool ok = false, adv_end = pre_stop;
     double h = 0.0, y_new[6];
@@ -304,70 +410,133 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
       h = tmin(h_try, dsub(bound, t));
       const double hh = dmul(h, h);
       __syncwarp();
+      const bool cached = prm.fsal && !stale;
+      int s0 = -1;  // the window's first stage (whole windows)
       // the stages (integrators/fixed.py erk_step, erkng_step)
 #pragma unroll 1
       for (int s = 0; s < S; ++s) {
+        if (s == 0 && cached) {
+          if (lane == 0) {
+#pragma unroll
+            for (int c = 0; c < 6; ++c) ks[0][c] = cache[c];
+          }
+          __syncwarp();
+          continue;
+        }
+        if (n > 0 && C == n && (s0 < 0 || s == s0 + G)) {
+          s0 = s;
+          window(h, s, s + G < S ? s + G : S, 0, n);
+        }
+        // the stage's state, one component a lane
         double pi[3], vi[3];
         if (s == 0 && prm.fsal) {
-          if (!stale) {
-            if (lane == 0) {
-#pragma unroll
-              for (int c = 0; c < 6; ++c) ks[0][c] = cache[c];
-            }
-            __syncwarp();
-            continue;
-          }
           // the fresh evaluation at the ship's state (stage 0's bodies)
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             pi[k] = y[k];
             vi[k] = y[3 + k];
           }
-        } else if (!kNystrom) {
-          double yi[6];
-#pragma unroll
-          for (int c = 0; c < 6; ++c) yi[c] = y[c];
-          for (int j = 0; j < s; ++j) {
-            const double a = ta[s * kMaxStages + j];
-            if (a != 0.0) {
-              const double cf = dmul(h, a);
-#pragma unroll
-              for (int c = 0; c < 6; ++c) yi[c] = dadd(yi[c], dmul(cf, ks[j][c]));
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            pi[k] = yi[k];
-            vi[k] = yi[3 + k];
-          }
         } else {
-          const double cc = dmul(h, tc[s]);
+          double acc;
+          if (!kNystrom) {
+            acc = yc;
+#pragma unroll 4
+            for (int j = 0; j < s; ++j) {
+              const double a = ta[s * kMaxStages + j];
+              const double term = dmul(dmul(h, a), ks[j][c6]);
+              if (a != 0.0) acc = dadd(acc, term);
+            }
+          } else {
+            acc = pos_lane ? dadd(yc, dmul(dmul(h, tc[s]), yv)) : yv;
+            const double mult = pos_lane ? hh : h;
+            const double* arow = (pos_lane ? ta : tav) + s * kMaxStages;
+#pragma unroll 4
+            for (int j = 0; j < s; ++j) {
+              const double a = arow[j];
+              const double term = dmul(dmul(mult, a), ks[j][k3]);
+              if (a != 0.0) acc = dadd(acc, term);
+            }
+          }
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
-            pi[k] = dadd(y[k], dmul(cc, y[3 + k]));
-            vi[k] = y[3 + k];
-          }
-          for (int j = 0; j < s; ++j) {
-            const double ap = ta[s * kMaxStages + j], av = tav[s * kMaxStages + j];
-            if (ap != 0.0) {
-              const double cf = dmul(hh, ap);
-#pragma unroll
-              for (int k = 0; k < 3; ++k) pi[k] = dadd(pi[k], dmul(cf, ks[j][k]));
-            }
-            if (av != 0.0) {
-              const double cf = dmul(h, av);
-#pragma unroll
-              for (int k = 0; k < 3; ++k) vi[k] = dadd(vi[k], dmul(cf, ks[j][k]));
-            }
+            pi[k] = shfl(acc, k);
+            vi[k] = shfl(acc, 3 + k);
           }
         }
-        double acc[3];
-        rhs(e, prm, dadd(t, dmul(h, tc[s])), pi, vi, burn, relative, burning, fb, lane, acc);
+
+        // the gravity: lane l's bodies, window by window
+        double ax = 0.0, ay = 0.0, az = 0.0;
+        for (int c0 = 0; c0 < n; c0 += C) {
+          const int c1 = c0 + C < n ? c0 + C : n;
+          if (C < n) {
+            s0 = s;
+            window(h, s, s + 1, c0, c1);
+          }
+          const double* bs = sb + (s - s0) * C - c0;
+          for (int i = c0 + lane; i < c1; i += kLanes) {
+            const double dx = dsub(bs[i], pi[0]);
+            const double dy = dsub(bs[G * C + i], pi[1]);
+            const double dz = dsub(bs[2 * G * C + i], pi[2]);
+            const double mu = i < kLanes ? mu_lane : __ldg(e.mus + i);
+            const double inv_r = rsqrt(dadd(dadd(dmul(dx, dx), dmul(dy, dy)), dmul(dz, dz)));
+            const double w = dmul(mu, dmul(dmul(inv_r, inv_r), inv_r));
+            ax = dadd(ax, dmul(dx, w));
+            ay = dadd(ay, dmul(dy, w));
+            az = dadd(az, dmul(dz, w));
+          }
+        }
+
+        // the lane sums, with the TNB frame between their levels where the
+        // ship burns about a body (spacecraft.py tnb_to_inertial)
+        double man[3] = {burn[0], burn[1], burn[2]};
+        if (frames && relative && burning) {
+          const double* f = fs[s];
+          double rp[3], x[3], yy[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            rp[k] = dsub(pi[k], f[k]);
+            x[k] = dsub(vi[k], f[3 + k]);
+          }
+          cross3(rp, x, yy);
+          tree_level(ax, ay, az, 16);
+          // x on lanes 0-2, y on 3-5, a component a lane
+          const double u0 = pos_lane ? x[0] : yy[0];
+          const double u1 = pos_lane ? x[1] : yy[1];
+          const double u2 = pos_lane ? x[2] : yy[2];
+          const double nu = norm3(u0, u1, u2);
+          tree_level(ax, ay, az, 8);
+          const double q = ddiv(k3 == 0 ? u0 : (k3 == 1 ? u1 : u2), nu);
+          tree_level(ax, ay, az, 4);
+          double X[3], Y[3], Z[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            X[k] = shfl(q, k);
+            Y[k] = shfl(q, 3 + k);
+          }
+          cross3(X, Y, Z);
+          tree_level(ax, ay, az, 2);
+          const double nz = norm3(Z[0], Z[1], Z[2]);
+          tree_level(ax, ay, az, 1);
+          const double zq = ddiv(k3 == 0 ? Z[0] : (k3 == 1 ? Z[1] : Z[2]), nz);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const double zk = shfl(zq, k);
+            man[k] = dadd(dadd(dmul(X[k], burn[0]), dmul(zk, burn[1])), dmul(Y[k], burn[2]));
+          }
+        } else {
+#pragma unroll
+          for (int off = kLanes / 2; off >= 1; off /= 2) tree_level(ax, ay, az, off);
+        }
+        double acc3[3] = {shfl(ax, 0), shfl(ay, 0), shfl(az, 0)};
+        if (prm.burns) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) acc3[k] = dadd(acc3[k], burning ? man[k] : 0.0);
+        }
         double k6[6];
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          k6[k] = kNystrom ? acc[k] : vi[k];
-          k6[3 + k] = kNystrom ? 0.0 : acc[k];
+          k6[k] = kNystrom ? acc3[k] : vi[k];
+          k6[3 + k] = kNystrom ? 0.0 : acc3[k];
         }
         if (s == 0 && prm.fsal) {
 #pragma unroll
@@ -381,50 +550,44 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
         __syncwarp();
       }
 
-      // the new state and the embedded error
-      double err[6];
+      // the new state and the embedded error, one component a lane
+      double yn, ec = 0.0;
+      bool first = true;
       if (!kNystrom) {
+        yn = yc;
 #pragma unroll
-        for (int c = 0; c < 6; ++c) {
-          double yn = y[c], ec = 0.0;
-          bool first = true;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            if (tb[s] != 0.0) yn = dadd(yn, dmul(dmul(h, tb[s]), ks[s][c]));
-            if (te[s] != 0.0) {
-              const double term = dmul(dmul(h, te[s]), ks[s][c]);
-              ec = first ? term : dadd(ec, term);
-              first = false;
-            }
+        for (int s = 0; s < S; ++s) {
+          const double k = ks[s][c6];
+          const double bterm = dmul(dmul(h, tb[s]), k);
+          if (tb[s] != 0.0) yn = dadd(yn, bterm);
+          const double eterm = dmul(dmul(h, te[s]), k);
+          if (te[s] != 0.0) {
+            ec = first ? eterm : dadd(ec, eterm);
+            first = false;
           }
-          y_new[c] = yn;
-          err[c] = ec;
         }
       } else {
+        yn = pos_lane ? dadd(yc, dmul(h, yv)) : yv;
+        const double mult = pos_lane ? hh : h;
+        const double* bw = pos_lane ? tb : tbv;
+        const double* ew = pos_lane ? te : tev;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          double yn = dadd(y[k], dmul(h, y[3 + k])), dyn = y[3 + k], ey = 0.0, edy = 0.0;
-          bool first_y = true, first_dy = true;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            if (tb[s] != 0.0) yn = dadd(yn, dmul(dmul(hh, tb[s]), ks[s][k]));
-            if (tbv[s] != 0.0) dyn = dadd(dyn, dmul(dmul(h, tbv[s]), ks[s][k]));
-            if (te[s] != 0.0) {
-              const double term = dmul(dmul(hh, te[s]), ks[s][k]);
-              ey = first_y ? term : dadd(ey, term);
-              first_y = false;
-            }
-            if (tev[s] != 0.0) {
-              const double term = dmul(dmul(h, tev[s]), ks[s][k]);
-              edy = first_dy ? term : dadd(edy, term);
-              first_dy = false;
-            }
+        for (int s = 0; s < S; ++s) {
+          const double k = ks[s][k3];
+          const double bterm = dmul(dmul(mult, bw[s]), k);
+          if (bw[s] != 0.0) yn = dadd(yn, bterm);
+          const double eterm = dmul(dmul(mult, ew[s]), k);
+          if (ew[s] != 0.0) {
+            ec = first ? eterm : dadd(ec, eterm);
+            first = false;
           }
-          y_new[k] = yn;
-          y_new[3 + k] = dyn;
-          err[k] = ey;
-          err[3 + k] = edy;
         }
+      }
+      double err[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        y_new[c] = shfl(yn, c);
+        err[c] = shfl(ec, c);
       }
 
       // the AbsTol norm and the controller (integrators/adaptive.py control)
@@ -445,10 +608,10 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
       double nh = dmul(h, cl);
       nh = isnan(nh) ? nh : fmin(nh, prm.h_max);
       const bool accepted = en <= 1.0;
-      n += 1;
+      n_att += 1;
       h_try = nh;
       ok = accepted && !fail;
-      adv_end = accepted || fail || n > prm.n_max;
+      adv_end = accepted || fail || n_att > prm.n_max;
     }
     in_adv = !pre_stop && !adv_end;
 
@@ -457,12 +620,14 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
       t = dadd(t, h);
 #pragma unroll
       for (int c = 0; c < 6; ++c) y[c] = y_new[c];
+      yc = pick(y, c6);
+      yv = pick(y, 3 + k3);
       next_h = h_try;
       if (prm.fsal) {
 #pragma unroll
         for (int c = 0; c < 6; ++c) cache[c] = ks[S - 1][c];
       }
-      if (lane < 7 && count <= max_knots) kn[count * 7 + lane] = lane == 0 ? t : y[lane - 1];
+      if (lane < 7 && count <= max_knots) kn[count * 7 + lane] = lane == 0 ? t : pick(y, lane - 1);
       count += 1;
     }
 
@@ -477,10 +642,14 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
     } else if (stop) {
       seg += 1;
       next_h = prm.h_init;
-      n = 0;
+      n_att = 0;
       stale = true;
     }
   }
+
+  // release the helpers
+  if (lane == 0) cmd.stop = 1;
+  bar_sync(kThreads);
 
   if (lane == 0) {
     fstate[kFT * B + ship] = t;
@@ -494,7 +663,7 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
     istate[kISeg * B + ship] = seg;
     istate[kICount * B + ship] = count;
     istate[kIReason * B + ship] = reason;
-    istate[kIN * B + ship] = n;
+    istate[kIN * B + ship] = n_att;
     istate[kIInAdv * B + ship] = in_adv;
     istate[kIStale * B + ship] = stale;
     istate[kIDone * B + ship] = done;
@@ -502,12 +671,58 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
   }
 }
 
+// The body positions a window of this instance holds on device `dev`: the
+// shared memory a block may opt into there, less the kernel's static shared
+// memory, in slots.  Worked out, and opted into, once a device, so that a
+// launch makes no attribute call.
+template <int S, bool kNystrom>
+cudaError_t window_slots(int dev, long long* slots) {
+  static std::atomic<long long> cached[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  long long cap = cached[dev].load();
+  if (cap == 0) {
+    const auto kernel = fleet_scan_kernel<S, kNystrom>;
+    int optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    cap = (static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes)) /
+          kSlotBytes;
+    if (cap < kLanes) return cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cap * kSlotBytes));
+    if (err != cudaSuccess) return err;
+    cached[dev].store(cap);
+  }
+  *slots = cap;
+  return cudaSuccess;
+}
+
 template <int S, bool kNystrom>
 int launch(const Params& prm, const double* tab, const Eph& e, const Fleet& fl, double* fstate,
            long long* istate, double* knots, int n_ships, int max_knots, int budget,
            cudaStream_t stream) {
-  fleet_scan_kernel<S, kNystrom><<<n_ships, kLanes, 0, stream>>>(
-      prm, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget);
+  int dev = 0;
+  long long cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = window_slots<S, kNystrom>(dev, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the windows: every stage at once where [3][S][N] fits, else G stages a
+  // window, else one stage in chunks of C bodies
+  const int n = e.n;
+  int G = S, C = n;
+  if (static_cast<long long>(S) * n > cap) {
+    if (n <= cap) {
+      G = static_cast<int>(cap / n);
+    } else {
+      G = 1;
+      C = static_cast<int>(cap / kLanes) * kLanes;
+    }
+  }
+  const size_t bytes = static_cast<size_t>(G) * C * kSlotBytes;
+  fleet_scan_kernel<S, kNystrom><<<n_ships, kThreads, bytes, stream>>>(
+      prm, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget, G, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,16 +732,15 @@ extern "C" {
 
 // stages, nystrom: the tableau's (ERK: 6, 7, 9, 13, 16; ERKNG: 7; else -1);
 // tab: device (kTabLen,) f64 table; prm: host (8,) f64 h_init, h_max, fac,
-// fac_min, fac_max, 1/tol_pos, 1/tol_vel, -1/lower_order; the ephemeris
-// (N bodies), the stacked timelines (B, S) and end_t (B,) on the device;
-// fstate (15, B) f64, istate (8, B) int64 and knots (B, max_knots + 1, 7)
-// f64 are read and advanced in place.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// fac_min, fac_max, 1/tol_pos, 1/tol_vel, -1/lower_order; the ephemeris (N bodies), the stacked timelines (B, S) and end_t (B,) on the
+// device; fstate (15, B) f64, istate (8, B) int64 and knots (B, max_knots +
+// 1, 7) f64 are read and advanced in place.  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched).
 int eet_fleet_scan(int stages, int nystrom, const double* tab, const double* prm,
-                   long long n_max, int fsal, int burns, int frames, const double* mus,
-                   const double* starts, const double* intervals, const long long* offsets,
-                   const long long* nsegs, const double* coeffs, int n_bodies,
-                   const double* ends, const double* accels, const long long* kind,
+                   long long n_max, int fsal, int burns, int frames,
+                   const double* mus, const double* starts, const double* intervals,
+                   const long long* offsets, const long long* nsegs, const double* coeffs,
+                   int n_bodies, const double* ends, const double* accels, const long long* kind,
                    const long long* body, int n_seg, const double* end_t, double* fstate,
                    long long* istate, double* knots, int n_ships, int max_knots, int budget,
                    cudaStream_t stream) {
@@ -535,30 +749,28 @@ int eet_fleet_scan(int stages, int nystrom, const double* tab, const double* prm
            frames};
   const Eph e{mus, starts, intervals, offsets, nsegs, coeffs, n_bodies};
   const Fleet fl{ends, accels, kind, body, end_t, n_seg};
+#define EET_FLEET_LAUNCH(S_, NY_)                                                        \
+  return launch<S_, NY_>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget, \
+                         stream)
   if (nystrom) {
-    if (stages == 7) return launch<7, true>(p, tab, e, fl, fstate, istate, knots, n_ships,
-                                            max_knots, budget, stream);
+    if (stages == 7) EET_FLEET_LAUNCH(7, true);
     return -1;
   }
   switch (stages) {
     case 6:
-      return launch<6, false>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget,
-                              stream);
+      EET_FLEET_LAUNCH(6, false);
     case 7:
-      return launch<7, false>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget,
-                              stream);
+      EET_FLEET_LAUNCH(7, false);
     case 9:
-      return launch<9, false>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget,
-                              stream);
+      EET_FLEET_LAUNCH(9, false);
     case 13:
-      return launch<13, false>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget,
-                               stream);
+      EET_FLEET_LAUNCH(13, false);
     case 16:
-      return launch<16, false>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget,
-                               stream);
+      EET_FLEET_LAUNCH(16, false);
     default:
       return -1;
   }
+#undef EET_FLEET_LAUNCH
 }
 
 }  // extern "C"

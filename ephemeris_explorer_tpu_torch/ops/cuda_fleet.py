@@ -2,8 +2,10 @@
 
 One launch advances every live ship of a fleet by up to
 :data:`ITERATIONS_PER_LAUNCH` iterations of ``spacecraft.propagate_batch``'s
-loop, one warp a ship.  No TPU kernel computes it: the JAX package runs a
-ship's nested ``lax.while_loop``s as one XLA program
+loop, one block a ship: its warps evaluate the bodies at all of an
+attempt's stage times at once, and one warp runs the stages.  No TPU kernel
+computes it: the JAX package runs a ship's nested ``lax.while_loop``s as one
+XLA program
 (``ephemeris_explorer_tpu/spacecraft.py:253`` ``propagate``, vmapped over a
 fleet at :715), and eager torch launches ~1,000 operations an iteration.  The CUDA source is
 ``csrc/fleet_scan.cu``; its header note says what the kernel computes, in
@@ -38,7 +40,7 @@ F_T, F_Y, F_NEXT_H, F_H_TRY, F_CACHE, F_ROWS = 0, 1, 7, 8, 9, 15
 # an advance, FSAL cache stale, done, iterations run in the last launch
 I_SEG, I_COUNT, I_REASON, I_N, I_IN_ADV, I_STALE, I_DONE, I_ITERS, I_ROWS = range(9)
 # Iterations of the loop a launch gives each live ship before the host reads
-# the done flags (~30 ms at full_solar_system's ~28 us an iteration of
+# the done flags (~20 ms at full_solar_system's ~19 us an iteration of
 # Verner87 on an H100).
 ITERATIONS_PER_LAUNCH = 1024
 # the kernel's instances (csrc/fleet_scan.cu): the stage counts of the

@@ -28,8 +28,10 @@ operations the single-ship loop gives it, whatever the batch beside it but
 for two batch flags (whether any ship burns, whether any burn is
 body-relative), which choose the RHS's form.
 
-On the card the loop is kernel 14 (:mod:`.ops.cuda_fleet`, one warp a
-ship): a launch advances every live ship by up to
+On the card the loop is kernel 14 (:mod:`.ops.cuda_fleet`, one block a
+ship, which evaluates the bodies at all of an attempt's stage times at once,
+as :func:`_stage_bodies` does, and runs the stages on one warp): a launch
+advances every live ship by up to
 ``cuda_fleet.ITERATIONS_PER_LAUNCH`` iterations, and the host reads the
 done flags once a launch.  On the CPU it is :func:`propagate_batch_plain`,
 the kernel's plain version: one batched, masked eager loop whose branches

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's step and force loops, on one NVIDIA GPU.
 
-    python3 profile_port.py [--loops A,AF,B,C,D,F,F64,FS,G,H,K,M,P,Y] [--out FILE] [--root DIR]
+    python3 profile_port.py [--loops A,AF,B,C,D,F,F64,FS,G,H,K,L,M,P,S,W,Y] [--out FILE] [--root DIR]
 
 Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
 
@@ -57,16 +57,31 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   full_solar_system (``propagate_ship``, B = 1), as phase 30 flies it,
   through kernel 14 and through the eager loop, steps as P's;
 * W (not a default): wall seconds of whole flights, each through kernel 14
-  and through the eager loop in turns (kernel, eager, kernel): the Mars
-  Transfer Ship to ``MISSION_UNTIL`` on 440 days of full_solar_system, as
-  phase 30 flies it (~2-3 min through the eager loop), and a full replan
-  of it to ``SESSION_UNTIL`` by ``api.Universe`` (respawned, so nothing
-  is reused), as phase 32's first replan; not profiled;
+  and through the eager loop in turns (kernel, eager, kernel; with
+  ``--no-eager`` ``W_RUNS`` runs through kernel 14): the Mars Transfer Ship
+  to ``MISSION_UNTIL`` on 440 days of full_solar_system, as phase 30 flies
+  it (~2-3 min through the eager loop), a full replan of it to
+  ``SESSION_UNTIL`` by ``api.Universe`` (respawned, so nothing is reused),
+  as phase 32's first replan, and fleet64 as phase 31 flies it (with its
+  ship-days/s).  Each run's wall seconds are split into the fleet loop's
+  route (``spacecraft._propagate_batch_kernel``, synchronised at its end)
+  and the host work around it; not profiled;
 * S (not a default): kernels 5, 6 and 7 at N = 4096 on each launch geometry
   of ``GEOMETRIES`` (warps a block x blocks a receiver group), device µs per
-  call by CUDA-graph replay, not profiled.
+  call by CUDA-graph replay, not profiled;
+* L (not a default): kernel 14's chain bound.  ``tools/latency_probe.cu``
+  (built here with the port's flags) times dependent chains of each
+  instruction kind with clock64 on one warp; the longest dependent path
+  through one pass of the stage loop (the loop with the lane-sum trees) of
+  ``fleet_scan_kernel<13, ERK>``
+  (Verner87) in ``cuobjdump -sass`` of the checkout's built library, each
+  instruction weighted by its kind's latency (branches' both arms, inner
+  loops once), times the 13 stages, is the chain bound of an iteration;
+  with M in the same call, its share of M's device µs an iteration.  Not
+  profiled.
 
-``--loops`` picks the paths (default the fourteen profiled ones).  ``--root``
+``--loops`` picks the paths (default the fourteen profiled ones);
+``--no-eager`` flies P, M and W through the card's route alone.  ``--root``
 imports the package (and ``chip_smoke.py``'s constants) from another
 checkout, to profile an older commit with this script in the same call;
 the FS loop's force then writes ``out`` only where that checkout's step
@@ -83,6 +98,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +175,7 @@ def _graph_us(torch, fn, reps: int = 20) -> float:
 
 
 # (warps a block, blocks a receiver group) of kernels 5-7 swept by --loops S
+W_RUNS = 7
 GEOMETRIES = ((8, 8), (8, 4), (4, 8), (8, 16), (4, 16), (8, 12), (8, 6))
 
 
@@ -214,11 +231,221 @@ def geometry_sweep(torch, pos, mu, dev) -> list:
     return rows
 
 
+# tools/latency_probe.cu's chains, in its order, and the SASS opcodes each
+# latency weights in the chain walk (DP: the f64 pipe; other ALU
+# instructions take the integer chain's per-instruction latency; barriers,
+# branches and calls none)
+PROBE_NAMES = ("DADD", "DMUL", "DFMA", "MUFU.RSQ64H", "ddiv", "dsqrt+DADD", "rsqrt_f64",
+               "SHFL_double+DADD", "LDS.32", "LDS.64+F2I+LOP", "IMAD+LOP3")
+PROBE_REPS = 4096
+CHAIN_KERNEL, CHAIN_STAGES = "fleet_scan_kernelILi13ELb0E", 13
+NO_WEIGHT = ("BRA", "BAR", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC", "NOP", "YIELD",
+             "MEMBAR", "DEPBAR", "BPT")
+
+
+def latency_probe(torch) -> dict:
+    """Cycles an operation of each chain of ``tools/latency_probe.cu`` on
+    one warp, and the SM clock the chains ran at (MHz)."""
+    import ctypes
+    import hashlib
+    import os
+
+    src = ROOT / "tools" / "latency_probe.cu"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false", "-shared",
+             "-Xcompiler", "-fPIC"]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib_path = ROOT / "build" / "probe" / digest / "liblatency_probe.so"
+    if not lib_path.exists():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        nvcc = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "nvcc"
+        subprocess.run([str(nvcc), *flags, "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    out = (ctypes.c_longlong * (len(PROBE_NAMES) + 1))()
+    err = lib.eet_latency_probe(out, ctypes.c_int(PROBE_REPS))
+    if err:
+        raise SystemExit(f"profile_port: the latency probe failed (cudaError_t {err})")
+    cycles = {name: out[i] / PROBE_REPS for i, name in enumerate(PROBE_NAMES)}
+    cycles["SHFL"] = cycles["SHFL_double+DADD"] - cycles["DADD"]
+    cycles["ALU"] = cycles["IMAD+LOP3"] / 2
+    return {"cycles": cycles, "sm_mhz": out[len(PROBE_NAMES)] / 1e3}
+
+
+def _weight(op: str, cycles: dict) -> tuple:
+    """(kind, cycles) of one SASS opcode in the chain walk."""
+    base = op.split(".")[0]
+    if base in NO_WEIGHT or base.startswith("ST"):
+        return "none", 0.0
+    if base in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"):
+        return "DP", cycles["DADD"] if base != "DFMA" else cycles["DFMA"]
+    if base == "MUFU":
+        return "MUFU", cycles["MUFU.RSQ64H"]
+    if base == "SHFL":
+        return "SHFL", cycles["SHFL"]
+    if base in ("LDS", "LDSM"):
+        return "LDS", cycles["LDS.32"]
+    if base in ("LDG", "LD", "LDC", "ULDC"):
+        return "LD", cycles["LDS.32"]
+    return "ALU", cycles["ALU"]
+
+
+def stage_chain(sass: str, kernel: str, cycles: dict) -> dict:
+    """The longest dependent path through one pass of the stage loop of
+    ``kernel`` (the smallest loop holding both the lane-sum trees' SHFL.BFLY
+    and MUFU.RSQ64H) in
+    ``cuobjdump -sass`` text: basic blocks in address order, a register's
+    depth at a block's entry the largest over the forward edges into it,
+    each instruction adding its kind's latency (``_weight``) to the deepest
+    register or predicate it reads, its guard included.  Returns the path's
+    cycles and its instructions by kind."""
+    body = next((b for b in re.split(r"\n\s*Function : ", sass)[1:]
+                 if kernel in b.split("\n", 1)[0]), None)
+    if body is None:
+        return {"kernel": kernel, "error": "no such function in the SASS"}
+    insts, labels = [], {}
+    for line in body.splitlines():
+        lab = re.match(r"^\s*(\.L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(insts)
+            continue
+        m = re.match(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2)))
+    addr_at = {a: i for i, (a, _) in enumerate(insts)}
+
+    def target(text):
+        tgt = re.search(r"`\((\.L_x_\d+)\)", text)
+        if tgt:
+            return labels.get(tgt.group(1))
+        hexa = re.search(r"0x([0-9a-f]+)\s*$", text)
+        return addr_at.get(int(hexa.group(1), 16)) if hexa else None
+
+    def opcode(text):
+        return re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split(" ")[0]
+
+    # the main line ends at the last EXIT: past it lie the out-of-line paths
+    # (a division's slow path, a shuffle's divergent path), whose branches
+    # back into the main line are not loops
+    main_end = max((i for i, (_, t) in enumerate(insts) if opcode(t) == "EXIT"),
+                   default=len(insts))
+    loops = []
+    for i, (_, text) in enumerate(insts[:main_end]):
+        if opcode(text).split(".")[0] == "BRA":
+            j = target(text)
+            if j is not None and j <= i:
+                ops = {opcode(t) for _, t in insts[j:i + 1]}
+                if any(o.startswith("SHFL.BFLY") for o in ops) and "MUFU.RSQ64H" in ops:
+                    loops.append((i - j, j, i))
+    if not loops:
+        return {"kernel": kernel, "error": "no stage loop found"}
+    _, lo, hi = min(loops)
+    # basic blocks of [lo, hi] and their forward edges; a block barrier
+    # starts a block, and the code between a pair of them (a window of
+    # the bodies' evaluation, once an attempt) is left out of the path
+    leaders, bars = {lo}, []
+    for i in range(lo, hi + 1):
+        text = insts[i][1]
+        if opcode(text).split(".")[0] in ("BRA", "EXIT", "RET"):
+            leaders.add(i + 1)
+            j = target(text)
+            if j is not None and lo < j <= hi:
+                leaders.add(j)
+        if opcode(text).split(".")[0] == "BAR":
+            leaders |= {i, i + 1}
+            bars.append(i)
+    windows = list(zip(bars[::2], bars[1::2]))
+    leaders = sorted(x for x in leaders if lo <= x <= hi)
+    skipped = {x for x in leaders if any(a <= x <= b for a, b in windows)}
+    preds = {b: [] for b in leaders}
+    blocks = [(b, (leaders[k + 1] if k + 1 < len(leaders) else hi + 1) - 1)
+              for k, b in enumerate(leaders)]
+    for b, e in blocks:
+        if b in skipped:
+            continue
+        text = insts[e][1]
+        op = opcode(text).split(".")[0]
+        # BRA.DIV, a guard or a predicate operand make a branch conditional
+        always = (not text.startswith("@") and (op in ("EXIT", "RET") or re.fullmatch(
+            r"BRA\s+(0x[0-9a-f]+|`\(\.L_x_\d+\))", text) is not None))
+        if not always:
+            if e + 1 in preds:
+                preds[e + 1].append(b)
+        if op == "BRA":
+            j = target(text)
+            if j is not None and j > e and j in preds:
+                preds[j].append(b)
+    out_state, best = {}, (0.0, {})
+    for b, e in blocks:
+        if b in skipped or (b > lo and not preds[b]):
+            continue  # a window's, or reached only through one
+        state = {}
+        for p in preds[b]:
+            for r, v in out_state.get(p, {}).items():
+                if r not in state or v[0] > state[r][0]:
+                    state[r] = v
+        for _, text in insts[b:e + 1]:
+            guard = re.match(r"^@!?(U?P[T0-9]+)\s+", text)
+            rest_text = text[guard.end():] if guard else text
+            op, _, rest = rest_text.partition(" ")
+            kind, lat = _weight(op, cycles)
+            args = [a.strip() for a in rest.split(",")] if rest else []
+            regs = [re.findall(r"\b(U?R\d+|U?P\d)\b", a) for a in args]
+            base = op.split(".")[0]
+            writes = (bool(args) and kind != "none" and not args[0].startswith("["))
+            n_dst = 1
+            while writes and n_dst < len(args) and re.fullmatch(r"U?P[T0-9]", args[n_dst]):
+                n_dst += 1
+            if (writes and re.fullmatch(r"U?P[T0-9]", args[0]) and n_dst < len(args)
+                    and base not in ("ISETP", "FSETP", "DSETP", "PSETP", "PLOP3", "HSETP2")):
+                n_dst += 1  # a predicate output, then the register written (SHFL, LOP3)
+            dst = [r for a in (regs[:n_dst] if writes else []) for r in a]
+            src = [r for a in (regs[n_dst:] if writes else regs) for r in a]
+            if guard:
+                src.append(guard.group(1))
+            if base in ("DADD", "DMUL", "DFMA") or (writes and len(dst) == 1 and dst[0][0] == "R"
+                                                    and op.endswith(".64")):
+                # a 64-bit result is a register pair: R2 stands for R2:R3
+                dst += [f"R{int(r[1:]) + 1}" for r in dst if re.fullmatch(r"R\d+", r)]
+            prev = max((state[r] for r in src if r in state), key=lambda v: v[0],
+                       default=(0.0, {}))
+            now = (prev[0] + lat, {**prev[1], kind: prev[1].get(kind, 0) + 1})
+            for r in dst:
+                state[r] = now
+            if now[0] > best[0]:
+                best = now
+        out_state[b] = state
+    return {"kernel": kernel, "loop_instructions": hi - lo + 1, "blocks": len(blocks),
+            "windows_left_out": len(windows),
+            "path_cycles": best[0],
+            "path_instructions": {k: v for k, v in sorted(best[1].items()) if k != "none"}}
+
+
+def chain_bound(torch, build) -> dict:
+    """Loop L: the probe's latencies and kernel 14's stage chain in the
+    checkout's built library (``build``, its ``_build`` module)."""
+    import os
+
+    build.library()
+    probe = latency_probe(torch)
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    lib_path = build.BUILD_ROOT / build._source_hash()[:16] / build.LIB_NAME
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    chain = stage_chain(sass, CHAIN_KERNEL, probe["cycles"])
+    out = {"loop": "L_kernel14_chain", "latency_cycles": probe["cycles"],
+           "sm_mhz": probe["sm_mhz"], **chain}
+    if "path_cycles" in chain and probe["sm_mhz"] > 0:
+        out["stage_chain_us"] = chain["path_cycles"] / probe["sm_mhz"]
+        out["chain_us_per_iteration"] = out["stage_chain_us"] * CHAIN_STAGES
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--loops", default="A,AF,B,C,D,F,F64,FS,G,H,K,M,P,Y")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
     ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--no-eager", action="store_true",
+                    help="P, M and W through the card's route only, not also the eager loop")
     args = ap.parse_args(argv)
     paths = set(args.loops.split(","))
 
@@ -423,7 +650,7 @@ def main(argv=None) -> int:
             its card route, and the eager loop where the card's route is
             kernel 14."""
             out = [("", None)]
-            if hasattr(sc_, "_propagate_batch_kernel"):
+            if hasattr(sc_, "_propagate_batch_kernel") and not args.no_eager:
                 out.append(("_eager", "eager"))
             return out
 
@@ -468,6 +695,9 @@ def main(argv=None) -> int:
 
         u = api.Universe.load(ROOT / "systems" / "full_solar_system_2433282.5", device=dev)
         u.generate(Duration.from_days(MISSION_EPH_DAYS))
+        e_w = eph.generate_ephemeris(fss.state, fss.settings, Duration.from_days(FLEET_EPH_DAYS),
+                                     device=dev)
+        fleet_w = _fleet_ships(fss, e_w, FLEET_SHIPS, FLEET_DAYS)
         mars = next(x for x in u.scene.ships if x.name == "Mars Transfer Ship")
 
         def mission():
@@ -479,22 +709,61 @@ def main(argv=None) -> int:
             u.set_plan_end(mars.name, Epoch.parse(SESSION_UNTIL), replan=False)
             return u.replan(mars.name, max_knots=MISSION_KNOTS)
 
+        def fleet64():
+            return sc_.propagate_ships(e_w, fleet_w, max_knots=FLEET_KNOTS, device=dev)
+
+        class Route:
+            """Seconds spent in the fleet loop's route (as it stands: the
+            kernel's or the eager loop) for a block."""
+
+            def __enter__(self):
+                self.orig, self.s = sc_._propagate_batch_kernel, 0.0
+
+                def timed(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = self.orig(*a, **kw)
+                    sync()
+                    self.s += time.perf_counter() - t0
+                    return out
+
+                sc_._propagate_batch_kernel = timed
+                return self
+
+            def __exit__(self, *exc):
+                sc_._propagate_batch_kernel = self.orig
+
         eager = dict(routes()).get("_eager")
-        for name, fly in (("mission", mission), ("replan", replan)):
+        for name, fly in (("mission", mission), ("replan", replan), ("fleet64", fleet64)):
             runs = {}
-            for suffix in ("", "_eager", "") if eager else ("",):
-                with Eager() if suffix else contextlib.nullcontext():
+            for suffix in ("", "_eager", "") if eager else ("",) * W_RUNS:
+                with Eager() if suffix else contextlib.nullcontext(), Route() as route:
                     sc_.propagate_batch.iterations = sc_.propagate_batch.syncs = 0
                     t0 = time.perf_counter()
                     traj = fly()
                     sync()
                     wall = time.perf_counter() - t0
-                r = runs.setdefault(suffix, {"wall_s": [], "knots": len(traj.ts),
+                knots = (sum(len(x.ts) for x in traj.values()) if isinstance(traj, dict)
+                         else len(traj.ts))
+                r = runs.setdefault(suffix, {"wall_s": [], "route_s": [], "host_s": [],
+                                             "knots": knots,
                                              "iterations": sc_.propagate_batch.iterations,
                                              "host_reads": sc_.propagate_batch.syncs})
                 r["wall_s"].append(wall)
+                r["route_s"].append(route.s)
+                r["host_s"].append(wall - route.s)
+                if name == "fleet64":
+                    r.setdefault("ship_days_per_s", []).append(FLEET_SHIPS * FLEET_DAYS / wall)
             for suffix, r in runs.items():
                 results.append({"loop": f"W_{name}{suffix}", **r})
+    if "L" in paths:
+        from ephemeris_explorer_tpu_torch import _build
+
+        chain = chain_bound(torch, _build)
+        m_loop = next((r for r in results if r["loop"] == "M_mission_first_days_iteration"),
+                      None)
+        if m_loop and "chain_us_per_iteration" in chain:
+            chain["share_of_M"] = chain["chain_us_per_iteration"] / m_loop["device_us_per_step"]
+        results.append(chain)
     if "S" in paths:
         sweep = geometry_sweep(torch, pos, mu, dev)
         for r in sweep:

@@ -2113,3 +2113,124 @@ def test_kernel14_single_ship_is_its_fleet_row_on_card(cuda_device):
                                              max_knots=16)
     assert (short.reason == spacecraft.DONE_KNOTS_FULL).all()
     assert all(torch.equal(x, y) for x, y in zip(short, plain)), _first_difference(short, plain)
+
+
+def _leo_inputs(e, t0, b, span_s, burn_end=None):
+    """(stacked timelines, t0s, p0s, v0s, ends) of b ships in 7,000 km orbits
+    about the Earth of ephemeris ``e`` at ``t0``, each with two 300 s TNB
+    burns about the Earth (the first ending at ``burn_end`` where given)."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+    from ephemeris_explorer_tpu_torch.ftime import Duration, Epoch
+
+    index = {n: i for i, n in enumerate(e.names)}
+    ep, ev = e["Earth"].state_vector(t0)
+    v_circ = float(np.sqrt(float(e.mus[index["Earth"]]) / 7000.0))
+    tls = []
+    for k in range(b):
+        starts = [t0 + 1800.0 + 97.0 * k + j * 7200.0 for j in range(2)]
+        if burn_end is not None:
+            starts[0] = burn_end - 300.0
+        tls.append(spacecraft.build_timeline(
+            [scene.ShipBurn(start=Epoch.from_offset_seconds(st), duration=Duration.from_seconds(300.0),
+                            acceleration=np.array([2e-3, -1e-3, 5e-4]) * (1.0 + 0.01 * k),
+                            reference="Earth") for st in starts], index))
+    k = np.arange(b)
+    p0s = ep[None] + np.stack([7000.0 + 40.0 * k, -25.0 * k, 10.0 * k], -1)
+    v0s = ev[None] + np.stack([0.0 * k, v_circ * (1.0 + 1e-4 * k), 0.0 * k], -1)
+    return spacecraft.stack_timelines(tls), np.full(b, t0), p0s, v0s, t0 + span_s * (1.0 + 0.05 * (k % 3))
+
+
+def _sem_on_card(device):
+    """sun_earth_moon's 40 days generated on the card: (ephemeris, packed)."""
+    from ephemeris_explorer_tpu_torch.ftime import Duration
+
+    sc = scene.load_scene(Path(__file__).resolve().parent.parent / "systems"
+                          / "sun_earth_moon_2433282.5")
+    e = eph.generate_ephemeris(sc.state, sc.settings, Duration.from_days(40.0), device=device)
+    return e, e.pack(device)
+
+
+def _with_dust(packed, n_bodies):
+    """``packed`` with bodies up to ``n_bodies``: copies of its bodies'
+    tables at 1e-9 of their mu."""
+    n = packed.mus.shape[0]
+    idx = torch.arange(n_bodies - n, device=packed.mus.device) % n
+    return eph.PackedEphemeris(
+        mus=torch.cat([packed.mus, packed.mus[idx] * 1e-9]),
+        **{k: torch.cat([getattr(packed, k), getattr(packed, k)[idx]])
+           for k in ("starts", "intervals", "offsets", "nsegs")},
+        coeffs=packed.coeffs)
+
+
+def _kernel14_vs_plain(method, packed, inputs, params, max_knots=1024):
+    """Kernel 14 and the plain loop on one batch, checked bitwise, kernel 14
+    alone launched once a host read: (kernel 14's result, its iterations)."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+
+    tab = get(method)
+    before = _every_launch()
+    spacecraft.propagate_batch.syncs = spacecraft.propagate_batch.iterations = 0
+    k = spacecraft.propagate_batch(tab, packed, *inputs, params, max_knots=max_knots)
+    torch.cuda.synchronize()
+    iterations = spacecraft.propagate_batch.iterations
+    assert _new_launches(before) == {"fleet_scan": spacecraft.propagate_batch.syncs}
+    p = spacecraft.propagate_batch_plain(tab, packed, *inputs, params, max_knots=max_knots)
+    assert all(torch.equal(x, y) for x, y in zip(k, p)), _first_difference(k, p)
+    return k, iterations
+
+
+@pytest.mark.parametrize("method", ["Verner87", "Fine45"])
+def test_kernel14_straddles_segment_boundaries_on_card(cuda_device, method):
+    """Ships whose attempts cross the Moon's first segment boundary, a TNB
+    burn ending exactly on it (so a knot, and the next attempt's stage 0,
+    fall on it): kernel 14 bitwise to the plain loop."""
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    e, packed = _sem_on_card(cuda_device)
+    t_b = float(packed.starts[2] + packed.intervals[2])
+    k, _ = _kernel14_vs_plain(method, packed, _leo_inputs(e, t_b - 1800.0, 4, 2 * 3600.0, t_b),
+                           AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3))
+    ts = k.ts[torch.isfinite(k.ts)]
+    assert (ts < t_b).any() and (ts == t_b).any() and (ts > t_b).any()
+
+
+@pytest.mark.parametrize("n_bodies", [33, 65])
+def test_kernel14_several_bodies_a_lane_on_card(cuda_device, n_bodies):
+    """33 and 65 bodies (two and three a lane: sun_earth_moon and dust
+    bodies): kernel 14 bitwise to the plain loop."""
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    e, packed = _sem_on_card(cuda_device)
+    t0 = float(packed.starts.max())
+    k, _ = _kernel14_vs_plain("Verner87", _with_dust(packed, n_bodies),
+                           _leo_inputs(e, t0, 4, 2 * 3600.0),
+                           AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3))
+    assert (k.count > 10).all()
+
+
+def test_kernel14_tight_tolerance_on_card(cuda_device):
+    """A tight tolerance with a slow shrink (fac_min 0.98), where most
+    attempts fail: kernel 14 bitwise to the plain loop."""
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    e, packed = _sem_on_card(cuda_device)
+    k, iterations = _kernel14_vs_plain(
+        "Verner87", packed, _leo_inputs(e, float(packed.starts.max()), 1, 6 * 3600.0),
+        AdaptiveParams(h_init=600.0, tol_pos=1e-10, tol_vel=1e-10, fac_min=0.98))
+    assert int(k.count[0]) * 2 < iterations
+
+
+@pytest.mark.parametrize("n_bodies,method", [(600, "Verner98"), (9500, "Verner87"),
+                                              (9500, "Fine45")])
+def test_kernel14_windows_past_shared_memory_on_card(cuda_device, n_bodies, method):
+    """Bodies that do not fit one window of shared memory (~9,400 positions
+    a block on an H100): 600 bodies at 16 stages (windows of 15 stages),
+    and 9,500 bodies (past one stage a window: one stage in chunks of
+    bodies): kernel 14 bitwise to the plain loop."""
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    e, packed = _sem_on_card(cuda_device)
+    k, _ = _kernel14_vs_plain(method, _with_dust(packed, n_bodies),
+                              _leo_inputs(e, float(packed.starts.max()), 4, 3600.0),
+                              AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3))
+    assert (k.count > 10).all()

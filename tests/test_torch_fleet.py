@@ -14,7 +14,12 @@ the distance.  The two round apart at
 the ulp (XLA:CPU fuses the compiled loop; the sums run in other orders),
 and the adaptive step sequences drift from there.
 
-The lane-tree body sum is held to a replay of the kernel's lanes
+A flight across the Moon's first segment boundary (coasting, and with a
+burn ending exactly on it) is held to the JAX package's at the same bars.
+The bodies at an attempt's stage times (``spacecraft._stage_bodies``), which
+kernel 14 evaluates before its stage chain, are held bitwise to each stage
+time's own evaluation across, on and past segment boundaries.  The
+lane-tree body sum is held to a replay of the kernel's lanes
 (bitwise) and to ``torch.sum`` (within the summation-order bound).  The
 route: CPU tensors take the eager loop; the kernel's route raises on a
 failed build or launch, and never falls back to the eager loop.  The kernel
@@ -368,3 +373,103 @@ def test_kernel_tables_and_start_state():
     assert f[cuda_fleet.F_NEXT_H].tolist() == f[cuda_fleet.F_H_TRY].tolist() == [60.0, 60.0]
     assert i[cuda_fleet.I_SEG].tolist() == [0, 3] and i[cuda_fleet.I_COUNT].tolist() == [1, 1]
     assert i[cuda_fleet.I_STALE].tolist() == [1, 1] and not i[cuda_fleet.I_DONE].any()
+
+
+def _stage_times(packed, case):
+    """(B = 2, S = 5) stage times on the port's sun_earth_moon pack: across
+    the Moon's first segment boundary (``straddle``), with stages exactly on
+    it and on the Earth's first one (``on``), or past every body's last
+    segment, where each clamps to it (``clamp``)."""
+    moon = float(packed.starts[2] + packed.intervals[2])
+    earth = float(packed.starts[1] + packed.intervals[1])
+    end = float((packed.starts + packed.intervals * packed.nsegs).max())
+    offsets = np.array([0.0, 17.5, 60.25, 111.0, 180.0])
+    if case == "straddle":
+        rows = [moon - 90.0 + offsets, moon - 3.0 + offsets / 7.0]
+    elif case == "on":
+        rows = [moon + offsets - offsets[1], earth - 60.25 + offsets]
+    else:
+        rows = [end + 10.0 + offsets, end + 3600.0 * 30 + offsets]
+    return torch.as_tensor(np.stack(rows)), moon, earth, end
+
+
+@pytest.mark.parametrize("case", ["straddle", "on", "clamp"])
+@pytest.mark.parametrize("frames", [False, True])
+def test_stage_bodies_are_each_stage_times_own_evaluation(sem, case, frames):
+    """The plain loop's bodies at an attempt's stage times
+    (``spacecraft._stage_bodies``, one batched evaluation) are, row by row,
+    the bits of evaluating each stage time alone (``positions`` /
+    ``state_vectors`` at one time): what kernel 14's evaluation of every
+    stage time before the stage chain rests on.  With ``frames`` the
+    positions come from the value-and-derivative form, and the frame body's
+    position and velocity are its row of the single evaluation."""
+    packed = sem[1].pack(CPU)
+    ts, moon, earth, end = _stage_times(packed, case)
+    fb = torch.tensor([1, 2])
+    rows = sc_._stage_bodies(packed, ts, fb if frames else None, frames)
+    assert len(rows) == ts.shape[1]
+    for s, (bpos, fpos, fvel) in enumerate(rows):
+        for b in range(ts.shape[0]):
+            t = ts[b, s]
+            if frames:
+                pos, vel = packed.state_vectors(t)
+                assert torch.equal(fpos[b], pos[fb[b]]) and torch.equal(fvel[b], vel[fb[b]])
+            else:
+                pos = packed.positions(t)
+                assert fpos is None and fvel is None
+            assert torch.equal(bpos[b], pos)
+    # the stage times fall where the case says
+    _, tau = packed._segments(ts)
+    local = ts[..., None] - packed.starts
+    idx = torch.minimum((torch.ceil(local / packed.intervals).long() - 1).clamp(min=0),
+                        packed.nsegs - 1)
+    if case == "straddle":
+        assert (ts[0] < moon).any() and (ts[0] > moon).any()
+        assert len(set(idx[0, :, 2].tolist())) == 2
+    elif case == "on":
+        assert (ts[0] == moon).any() and (ts[1] == earth).any()
+        assert tau[0, 1, 2] == 1.0 and tau[1, 2, 1] == 1.0
+    else:
+        assert (ts > end).all() and (idx == packed.nsegs - 1).all() and (tau > 1.0).all()
+
+
+@pytest.mark.parametrize("kind", ["coast", "tnb"])
+def test_plain_loop_across_segment_boundaries_matches_jax(sem, kind):
+    """A flight in low Earth orbit across the Moon's first segment boundary,
+    the fleet loop's plain version against the JAX package's ``propagate``
+    on the same coefficients: coasting, an attempt spans the boundary;
+    with a TNB burn about the Earth that ends exactly on it, a knot and the
+    next attempt's first stage fall on it.  The same reason and final
+    segment, knot counts within 1%, 1e-2 km at the boundary (``tnb``) and
+    at the end."""
+    sc, eph, jeph = sem
+    packed = eph.pack(CPU)
+    moon = float(packed.starts[2] + packed.intervals[2])
+    t0, end = moon - 1800.0, moon + 1800.0
+    index = {n: i for i, n in enumerate(eph.names)}
+    ep, ev = eph["Earth"].state_vector(t0)
+    pos0 = ep + np.array([7000.0, 0.0, 0.0])
+    vel0 = ev + np.array([0.0, float(np.sqrt(eph.mus[index["Earth"]] / 7000.0)), 0.0])
+    burns = [] if kind == "coast" else [
+        ShipBurn(start=Epoch.from_offset_seconds(moon - 300.0), duration=Duration.from_seconds(300.0),
+                 acceleration=np.array([4e-3, -1e-3, 2e-3]), reference="Earth")]
+    params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
+    jparams = jsc.AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3, n_max=params.n_max)
+    tl, jtl = sc_.build_timeline(burns, index), jsc.build_timeline(_jburns(burns), index)
+    r = sc_.propagate(get_method("Verner87"), packed, tl, t0, pos0, vel0, end, params,
+                      max_knots=1024)
+    jr = jsc.propagate(jget("Verner87"), jeph.pack(), jsc.Timeline(*map(jnp.asarray, jtl)), t0,
+                       jnp.asarray(pos0), jnp.asarray(vel0), end, jparams, max_knots=1024)
+    k, jk = int(r.count), int(jr.count)
+    assert int(r.reason) == int(jr.reason) == sc_.DONE_END
+    assert int(r.final_seg) == int(jr.final_seg)
+    assert abs(k - jk) <= max(1, KNOTS_REL * jk)
+    ts, jts = r.ts[:k].numpy(), np.asarray(jr.ts[:jk])
+    if kind == "coast":
+        assert ((ts[:-1] < moon) & (ts[1:] > moon)).any()
+    else:
+        at, jat = np.nonzero(ts == moon)[0], np.nonzero(jts == moon)[0]
+        assert len(at) == len(jat) == 1
+        assert np.abs(r.pos[at[0]].numpy() - np.asarray(jr.pos[jat[0]])).max() < PORT_VS_JAX_KM
+    assert ts[-1] == jts[-1] == end
+    assert np.abs(r.pos[k - 1].numpy() - np.asarray(jr.pos[jk - 1])).max() < PORT_VS_JAX_KM
