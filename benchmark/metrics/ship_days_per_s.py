@@ -1,0 +1,3 @@
+"""Every ship-day flown in the window over the window's host-clock time."""
+
+from harness.readers import work_rate as read  # noqa: F401

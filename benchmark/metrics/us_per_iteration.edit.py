@@ -1,0 +1,3 @@
+"""Flight wall (host clock, synchronised) over spacecraft.propagate_batch.iterations."""
+
+from harness.readers import us_per_iteration as read  # noqa: F401
