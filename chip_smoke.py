@@ -4275,9 +4275,15 @@ def main(argv=None) -> int:
 
     def ptxas_of(kernel):
         """ptxas's lines on the entry functions whose names hold ``kernel``
-        (registers, shared memory, spills), from this process's build."""
+        (registers, shared memory, spills), from this process's build, or
+        from the build.log saved beside the library it loaded from the
+        cache."""
+        log = _build.build_log
+        saved = _build.BUILD_ROOT / _build._source_hash()[:16] / "build.log"
+        if not log and saved.exists():
+            log = saved.read_text()
         out, mine = [], False
-        for ln in _build.build_log.splitlines():
+        for ln in log.splitlines():
             if "Compiling entry function" in ln or "Function properties for" in ln:
                 mine = kernel in ln
             if mine:
@@ -4992,14 +4998,20 @@ def main(argv=None) -> int:
         cases43.append(case)
         ptxas = {}
         for ln in ptxas_of("fleet_scan_kernel"):
-            j = re.search(r"fleet_scan_kernelILi(\d+)ELb([01])E", ln)
+            # an instance's tableau, tableau::<name> (mangled: its length,
+            # then the name)
+            j = re.search(r"fleet_scan_kernelIN7tableau(\d+)(\w+)", ln)
             if j:
-                key = f"{'ERKNG' if j.group(2) == '1' else 'ERK'}{j.group(1)}"
+                key = j.group(2)[:int(j.group(1))]
             elif "registers" in ln or "spill" in ln:
                 ptxas.setdefault(key, []).append(ln.split(":", 1)[-1].strip())
         spills = sorted({ln for v in ptxas.values() for ln in v
                          if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln})
         check(not spills, f"phase 43: kernel 14 spills registers: {spills}")
+        # every instance's lines, so that no spill check passes on none
+        check(sorted(ptxas) == sorted(name for name, *_ in cuda_fleet.instances())
+              and all(any("registers" in ln for ln in v) for v in ptxas.values()),
+              f"phase 43: kernel 14's ptxas lines are not one set an instance: {sorted(ptxas)}")
         print(json.dumps({"phase": 43, "kernel": "fleet_scan (kernel 14)", "cases": cases43,
                           "iterations_per_launch": cuda_fleet.ITERATIONS_PER_LAUNCH,
                           "ptxas": ptxas, "ptxas_spill_lines": spills,

@@ -184,7 +184,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.eet_gen_scan_q_max_bodies.restype = _int
     lib.eet_gen_scan_q_src_tile.argtypes = []
     lib.eet_gen_scan_q_src_tile.restype = _int
-    lib.eet_fleet_scan.argtypes = ([_int, _int, _vp, _vp, ctypes.c_longlong, _int, _int, _int]
+    lib.eet_fleet_scan.argtypes = ([_int, _vp, ctypes.c_longlong, _int, _int, _int]
                                    + [_vp] * 6 + [_int] + [_vp] * 4 + [_int] + [_vp] * 4
                                    + [_int] * 3 + [_vp])
     lib.eet_fleet_scan.restype = _int

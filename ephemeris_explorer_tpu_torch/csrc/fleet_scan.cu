@@ -82,11 +82,22 @@
 //     the TNB frame normalises x on lanes 0-2 and y on 3-5 at once, then z,
 //     and is issued between the levels of the lane-sum trees so that its
 //     square roots and divisions overlap the shuffles.
-//   * The tableau (592 doubles) is read into shared memory once a launch;
-//     the stage derivatives k_s (up to 16 x 6) stay in shared memory,
-//     written by lane 0 and read by every lane after a __syncwarp.
+//   * The tableau is a template parameter: one instance for each adaptive
+//     tableau of fleet_tableaux.cuh, its coefficients and zero pattern
+//     compile-time constants.  Each lane keeps its own component of every
+//     k_s in registers (ERK: component lane % 6; ERKNG: lane % 3, the
+//     stage's acceleration), so a stage's state, the new state and the
+//     error are straight-line chains of the nonzero coefficients' terms
+//     over registers: no coefficient is loaded, no zero tested, and no k_s
+//     goes through shared memory.  Stage s + 1's state is formed as stage s
+//     ends: once the lane sums' broadcast is issued, a balanced tree of
+//     (warp-uniform) branches on s + 1 leads to that stage's row, which sums
+//     the terms of k_0..k_{s-1} while the shuffles are in flight; once k_s
+//     is known, its own multiply and add remain.  The stage loop stays
+//     rolled, with the RHS inlined once.  There is no kernel for a tableau
+//     that no instance matches (ops/cuda_fleet.py `plan` refuses it).
 //
-// Three other designs measured slower on the same card by
+// Other designs measured slower on the same card by
 // tools/fleet_scan_timeline.py, which stamps clock64 at the parts of an
 // iteration (tools/fleet_scan_clocks.patch, applied to a copy of this file;
 // an edit here that the patch's context no longer matches needs the patch
@@ -95,38 +106,32 @@
 // by stage while the lead runs, each stage's readiness a shared-memory
 // count behind a block fence; the stages' states, the new state and the
 // error summed term by term as each stage ends; the evaluation out of line
-// (__noinline__).
+// (__noinline__).  With the tableau compiled in: each stage's whole state
+// summed at its start (26,843 cycles an iteration against 26,085), the
+// branch tree a switch (27,157 against 26,843), and the stage loop unrolled
+// (DormandPrince54 16,177 against 14,338: the RHS and the windows'
+// evaluation copied into every stage).
 //
-// The stage loop is not unrolled, so the RHS is inlined once; its count is a
-// template parameter (the stage counts of the port's adaptive tableaux: 6,
-// 7, 9, 13, 16 for ERK, 7 for ERKNG).  The state and counters go back to
-// device memory at the end of the launch (cuda_fleet.py's row layout), with
-// the iterations the ship ran in it.  __launch_bounds__(256, 1) leaves ptxas
-// up to 255 registers a thread (phase 43 checks that it spills none).
+// The state and counters go back to device memory at the end of the launch
+// (cuda_fleet.py's row layout), with the iterations the ship ran in it.
+// __launch_bounds__(256, 1) leaves ptxas up to 255 registers a thread
+// (phase 43 checks that it spills none).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
+
+#include "fleet_tableaux.cuh"
 
 namespace {
 
 constexpr int kLanes = 32;
 constexpr int kWarps = 8;
 constexpr int kThreads = kLanes * kWarps;
-constexpr int kMaxStages = 16;
 constexpr int kCoefs = 9;                  // ops/polyfit.py MAX_COEFFS
 constexpr int kSegDoubles = kCoefs * 3;
-// the tableau table (cuda_fleet.py `_table`): c, a (ERKNG: ap), av, b (bp),
-// bv, e (ep), ev; the (16, 16) matrices row-major
-constexpr int kTabC = 0;
-constexpr int kTabA = kTabC + kMaxStages;
-constexpr int kTabAV = kTabA + kMaxStages * kMaxStages;
-constexpr int kTabB = kTabAV + kMaxStages * kMaxStages;
-constexpr int kTabBV = kTabB + kMaxStages;
-constexpr int kTabE = kTabBV + kMaxStages;
-constexpr int kTabEV = kTabE + kMaxStages;
-constexpr int kTabLen = kTabEV + kMaxStages;
 // state rows (cuda_fleet.py F_*, I_*), each of n_ships values
 constexpr int kFT = 0, kFY = 1, kFNextH = 7, kFHTry = 8, kFCache = 9;
 constexpr int kISeg = 0, kICount = 1, kIReason = 2, kIN = 3, kIInAdv = 4, kIStale = 5,
@@ -223,6 +228,133 @@ __device__ __forceinline__ double norm3(double a, double b, double c) {
   return __dsqrt_rn(dadd(dadd(dmul(a, a), dmul(b, b)), dmul(c, c)));
 }
 
+// A compile-time tableau's coefficients, read in constant expressions alone
+// (the elements of a host constexpr array reach device code only through a
+// constexpr function): c, a (ERKNG: ap), av, b (bp), bv, e (ep), ev.
+template <class T>
+__host__ __device__ constexpr double c_of(int s) { return T::kC[s]; }
+template <class T, bool kV>
+__host__ __device__ constexpr double a_of(int s, int j) {
+  if constexpr (kV) return T::kAV[s][j]; else return T::kA[s][j];
+}
+template <class T, bool kV>
+__host__ __device__ constexpr double b_of(int s) {
+  if constexpr (kV) return T::kBV[s]; else return T::kB[s];
+}
+template <class T, bool kV>
+__host__ __device__ constexpr double e_of(int s) {
+  if constexpr (kV) return T::kEV[s]; else return T::kE[s];
+}
+// the first stage with a nonzero error coefficient (kStages if none)
+template <class T, bool kV>
+__host__ __device__ constexpr int first_e() {
+  for (int s = 0; s < T::kStages; ++s)
+    if (e_of<T, kV>(s) != 0.0) return s;
+  return T::kStages;
+}
+
+// f(std::integral_constant<int, I>{}) for I = I0, ..., N - 1 in turn
+template <int I0, int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I0 < N) {
+    f(std::integral_constant<int, I0>{});
+    static_for<I0 + 1, N>(f);
+  }
+}
+
+// acc + sum_j (m x_Rj) k_j over the nonzero x_Rj, j < J, in order (x the
+// tableau's a, or av where kV): the first J terms of stage R's state
+template <class T, bool kV, int R, int J>
+__device__ __forceinline__ double row_sum(double acc, double m, const double (&kr)[T::kStages]) {
+  static_for<0, J>([&](auto jc) {
+    constexpr double x = a_of<T, kV>(R, decltype(jc)::value);
+    if constexpr (x != 0.0) acc = dadd(acc, dmul(dmul(m, x), kr[decltype(jc)::value]));
+  });
+  return acc;
+}
+
+// Stage 0's state, this lane's component: ERK y_c; ERKNG positions y_c +
+// (h c_0) v_c, velocities v_c (an FSAL tableau's fresh stage 0 is y_c)
+template <class T>
+__device__ __forceinline__ double state0(double yc, double yv, double h, bool pos_lane) {
+  if constexpr (!T::kNystrom) {
+    return yc;
+  } else {
+    constexpr double c = c_of<T>(0);
+    return pos_lane ? dadd(yc, dmul(dmul(h, c), yv)) : yv;
+  }
+}
+
+// Stage R's state but for its last term, while k_{R-1} is still being
+// formed: `acc` the sum of the nonzero terms of k_0..k_{R-2} onto the row's
+// start (ERK y_c; ERKNG positions y_c + (h c_R) v_c with h^2 ap, velocities
+// v_c with h av), `m` the last term's multiplier (h a_{R,R-1}; ERKNG h^2
+// ap or h av) and `last` whether that coefficient is nonzero.
+struct Partial {
+  double acc, m;
+  bool last;
+};
+
+// k_{R-2} (kc) goes into kr[R - 2], then stage R's Partial for a
+// compile-time tableau; R = kStages only stores.
+template <class T, int R>
+__device__ __forceinline__ Partial partial_state(double (&kr)[T::kStages], double kc, double yc,
+                                                 double yv, double h, double hh, bool pos_lane) {
+  if constexpr (R >= 2) kr[R - 2] = kc;
+  if constexpr (R == T::kStages) {
+    return {0.0, 0.0, false};
+  } else if constexpr (!T::kNystrom) {
+    constexpr double a = a_of<T, false>(R, R - 1);
+    return {row_sum<T, false, R, R - 1>(yc, h, kr), dmul(h, a), a != 0.0};
+  } else {
+    constexpr double c = c_of<T>(R), ap = a_of<T, false>(R, R - 1), av = a_of<T, true>(R, R - 1);
+    const double p = row_sum<T, false, R, R - 1>(dadd(yc, dmul(dmul(h, c), yv)), hh, kr);
+    const double v = row_sum<T, true, R, R - 1>(yv, h, kr);
+    return {pos_lane ? p : v, pos_lane ? dmul(hh, ap) : dmul(h, av),
+            pos_lane ? ap != 0.0 : av != 0.0};
+  }
+}
+
+// partial_state for the stage r in [R0, R1) that r names: a balanced tree
+// of (warp-uniform) branches
+template <class T, int R0, int R1>
+__device__ __forceinline__ Partial partial_state_at(int r, double (&kr)[T::kStages], double kc,
+                                                    double yc, double yv, double h, double hh,
+                                                    bool pos_lane) {
+  if constexpr (R1 - R0 == 1) {
+    return partial_state<T, R0>(kr, kc, yc, yv, h, hh, pos_lane);
+  } else {
+    constexpr int mid = (R0 + R1) / 2;
+    if (r < mid) return partial_state_at<T, R0, mid>(r, kr, kc, yc, yv, h, hh, pos_lane);
+    return partial_state_at<T, mid, R1>(r, kr, kc, yc, yv, h, hh, pos_lane);
+  }
+}
+
+// the state that a Partial leaves once k_{R-1} (kc) is known
+__device__ __forceinline__ double finish_state(const Partial& p, double kc) {
+  return p.last ? dadd(p.acc, dmul(p.m, kc)) : p.acc;
+}
+
+// The new state and the embedded error, this lane's component, for a
+// compile-time tableau: y + sum_s (m b_s) k_s over the nonzero b_s, and the
+// sum of the nonzero (m e_s) k_s from the first (0.0 where none); b, e the
+// tableau's (bv, ev where kV).
+template <class T, bool kV>
+__device__ __forceinline__ void new_state(double& yn, double& ec, double m,
+                                          const double (&kr)[T::kStages]) {
+  constexpr int first = first_e<T, kV>();
+  ec = 0.0;
+  static_for<0, T::kStages>([&](auto sc) {
+    constexpr int s = decltype(sc)::value;
+    constexpr double b = b_of<T, kV>(s), e = e_of<T, kV>(s);
+    if constexpr (b != 0.0) yn = dadd(yn, dmul(dmul(m, b), kr[s]));
+    if constexpr (e != 0.0) {
+      const double term = dmul(dmul(m, e), kr[s]);
+      if constexpr (s == first) ec = term; else ec = dadd(ec, term);
+    }
+  });
+}
+
 __device__ __forceinline__ void bar_sync(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
@@ -301,28 +433,32 @@ __device__ void eval_window(const Eph& e, const double* tc, const Window& w, boo
   }
 }
 
-template <int S, bool kNystrom>
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
-                  double* __restrict__ fstate, long long* __restrict__ istate,
-                  double* __restrict__ knots, int n_ships, int max_knots, int budget, int G,
-                  int C) {
+fleet_scan_kernel(Params prm, Eph e, Fleet fl, double* __restrict__ fstate,
+                  long long* __restrict__ istate, double* __restrict__ knots, int n_ships,
+                  int max_knots, int budget, int G, int C) {
+  constexpr bool kNystrom = T::kNystrom;
+  constexpr int kS = T::kStages;
   extern __shared__ double sb[];           // [3][G][C] body positions
-  __shared__ double s_tab[kTabLen];
-  __shared__ double ks[S][6];              // the stage derivatives k_s
-  __shared__ double fs[S][6];              // the frame body's (position, velocity)
+  __shared__ double tc[kS];                // the tableau's c (the stage times)
+  __shared__ double fs[kS][6];             // the frame body's (position, velocity)
   __shared__ Window cmd;
   const int warp = threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
   const int ship = blockIdx.x;
   const int n = e.n;
-  for (int i = threadIdx.x; i < kTabLen; i += kThreads) s_tab[i] = tab[i];
+  if (threadIdx.x == 0) {
+    static_for<0, kS>([&](auto sc) {
+      constexpr double c = c_of<T>(decltype(sc)::value);
+      tc[decltype(sc)::value] = c;
+    });
+  }
   // this thread's body in the evaluation (and the lead lane's in the sums)
   const int body = n <= kLanes ? (n > 0 ? lane % n : 0) : lane;
   const Tables mine = n > 0 ? tables_of(e, body) : Tables{0.0, 1.0, 0, 0};
   const double mu_lane = lane < n ? __ldg(e.mus + lane) : 0.0;
   __syncthreads();
-  const double* tc = s_tab + kTabC;
   const bool frames = prm.frames != 0;
 
   if (warp != 0) {  // the helpers: evaluate each window the lead posts
@@ -335,21 +471,11 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
     }
   }
 
-  const double* ta = s_tab + kTabA;
-  const double* tav = s_tab + kTabAV;
-  const double* tb = s_tab + kTabB;
-  const double* tbv = s_tab + kTabBV;
-  const double* te = s_tab + kTabE;
-  const double* tev = s_tab + kTabEV;
-
   const size_t B = static_cast<size_t>(n_ships);
   double t = fstate[kFT * B + ship];
-  double y[6], cache[6];
+  double y[6];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    y[c] = fstate[(kFY + c) * B + ship];
-    cache[c] = fstate[(kFCache + c) * B + ship];
-  }
+  for (int c = 0; c < 6; ++c) y[c] = fstate[(kFY + c) * B + ship];
   double next_h = fstate[kFNextH * B + ship];
   double h_try = fstate[kFHTry * B + ship];
   long long seg = istate[kISeg * B + ship];
@@ -369,6 +495,11 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
   const int k3 = c6 % 3;
   const bool pos_lane = c6 < 3;
   double yc = pick(y, c6), yv = pick(y, 3 + k3);
+  // k_j, this lane's component (ERK k_j[c6], ERKNG k_j[k3]): the newest in
+  // kc until stage j + 2's Partial moves it into kr[j]; the FSAL cache, this
+  // lane's component too
+  const int own = kNystrom ? k3 : c6;
+  double kr[kS], kc = 0.0, cache_own = fstate[(kFCache + own) * B + ship];
 
   // the ship's timeline row, read again when its segment changes
   long long row_sc = -1, fb = 0;
@@ -409,59 +540,34 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
     if (!pre_stop) {
       h = tmin(h_try, dsub(bound, t));
       const double hh = dmul(h, h);
+      // no shared memory is handed over here: the reconvergence point alone
+      // makes the Verner87 iteration 26,251 cycles instead of 26,704
+      // (tools/fleet_scan_timeline.py, H100 80GB HBM3 at 700 W)
       __syncwarp();
       const bool cached = prm.fsal && !stale;
       int s0 = -1;  // the window's first stage (whole windows)
+      // the next stage's state, formed as each stage ends (stage 0's here)
+      double next = prm.fsal ? yc : state0<T>(yc, yv, h, pos_lane);
       // the stages (integrators/fixed.py erk_step, erkng_step)
 #pragma unroll 1
-      for (int s = 0; s < S; ++s) {
+      for (int s = 0; s < kS; ++s) {
         if (s == 0 && cached) {
-          if (lane == 0) {
-#pragma unroll
-            for (int c = 0; c < 6; ++c) ks[0][c] = cache[c];
-          }
-          __syncwarp();
+          kc = cache_own;
+          next = finish_state(partial_state_at<T, 1, kS + 1>(1, kr, kc, yc, yv, h, hh, pos_lane),
+                              kc);
           continue;
         }
         if (n > 0 && C == n && (s0 < 0 || s == s0 + G)) {
           s0 = s;
-          window(h, s, s + G < S ? s + G : S, 0, n);
+          window(h, s, s + G < kS ? s + G : kS, 0, n);
         }
-        // the stage's state, one component a lane
+        // the stage's state, one component a lane (an FSAL tableau's fresh
+        // evaluation: y itself, through the same shuffles)
         double pi[3], vi[3];
-        if (s == 0 && prm.fsal) {
-          // the fresh evaluation at the ship's state (stage 0's bodies)
 #pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            pi[k] = y[k];
-            vi[k] = y[3 + k];
-          }
-        } else {
-          double acc;
-          if (!kNystrom) {
-            acc = yc;
-#pragma unroll 4
-            for (int j = 0; j < s; ++j) {
-              const double a = ta[s * kMaxStages + j];
-              const double term = dmul(dmul(h, a), ks[j][c6]);
-              if (a != 0.0) acc = dadd(acc, term);
-            }
-          } else {
-            acc = pos_lane ? dadd(yc, dmul(dmul(h, tc[s]), yv)) : yv;
-            const double mult = pos_lane ? hh : h;
-            const double* arow = (pos_lane ? ta : tav) + s * kMaxStages;
-#pragma unroll 4
-            for (int j = 0; j < s; ++j) {
-              const double a = arow[j];
-              const double term = dmul(dmul(mult, a), ks[j][k3]);
-              if (a != 0.0) acc = dadd(acc, term);
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            pi[k] = shfl(acc, k);
-            vi[k] = shfl(acc, 3 + k);
-          }
+        for (int k = 0; k < 3; ++k) {
+          pi[k] = shfl(next, k);
+          vi[k] = shfl(next, 3 + k);
         }
 
         // the gravity: lane l's bodies, window by window
@@ -528,6 +634,10 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
           for (int off = kLanes / 2; off >= 1; off /= 2) tree_level(ax, ay, az, off);
         }
         double acc3[3] = {shfl(ax, 0), shfl(ay, 0), shfl(az, 0)};
+        // the next stage's state but for k_s's term, while the shuffles are
+        // in flight (k_{s-1} into kr[s - 1])
+        const Partial nx =
+            partial_state_at<T, 1, kS + 1>(s + 1, kr, kc, yc, yv, h, hh, pos_lane);
         if (prm.burns) {
 #pragma unroll
           for (int k = 0; k < 3; ++k) acc3[k] = dadd(acc3[k], burning ? man[k] : 0.0);
@@ -538,50 +648,26 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
           k6[k] = kNystrom ? acc3[k] : vi[k];
           k6[3 + k] = kNystrom ? 0.0 : acc3[k];
         }
-        if (s == 0 && prm.fsal) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) cache[c] = k6[c];
-          stale = false;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) ks[s][c] = k6[c];
-        }
-        __syncwarp();
+        kc = pick(k6, own);
+        next = finish_state(nx, kc);
       }
 
       // the new state and the embedded error, one component a lane
       double yn, ec = 0.0;
-      bool first = true;
-      if (!kNystrom) {
+      kr[kS - 1] = kc;
+      if (prm.fsal && !cached) {  // stage 0 was the fresh evaluation
+        cache_own = kr[0];
+        stale = false;
+      }
+      if constexpr (!kNystrom) {
         yn = yc;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const double k = ks[s][c6];
-          const double bterm = dmul(dmul(h, tb[s]), k);
-          if (tb[s] != 0.0) yn = dadd(yn, bterm);
-          const double eterm = dmul(dmul(h, te[s]), k);
-          if (te[s] != 0.0) {
-            ec = first ? eterm : dadd(ec, eterm);
-            first = false;
-          }
-        }
+        new_state<T, false>(yn, ec, h, kr);
       } else {
-        yn = pos_lane ? dadd(yc, dmul(h, yv)) : yv;
-        const double mult = pos_lane ? hh : h;
-        const double* bw = pos_lane ? tb : tbv;
-        const double* ew = pos_lane ? te : tev;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const double k = ks[s][k3];
-          const double bterm = dmul(dmul(mult, bw[s]), k);
-          if (bw[s] != 0.0) yn = dadd(yn, bterm);
-          const double eterm = dmul(dmul(mult, ew[s]), k);
-          if (ew[s] != 0.0) {
-            ec = first ? eterm : dadd(ec, eterm);
-            first = false;
-          }
-        }
+        double pn = dadd(yc, dmul(h, yv)), pe, vn = yv, ve;
+        new_state<T, false>(pn, pe, hh, kr);
+        new_state<T, true>(vn, ve, h, kr);
+        yn = pos_lane ? pn : vn;
+        ec = pos_lane ? pe : ve;
       }
       double err[6];
 #pragma unroll
@@ -623,10 +709,7 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
       yc = pick(y, c6);
       yv = pick(y, 3 + k3);
       next_h = h_try;
-      if (prm.fsal) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) cache[c] = ks[S - 1][c];
-      }
+      if (prm.fsal) cache_own = kr[kS - 1];
       if (lane < 7 && count <= max_knots) kn[count * 7 + lane] = lane == 0 ? t : pick(y, lane - 1);
       count += 1;
     }
@@ -651,13 +734,13 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
   if (lane == 0) cmd.stop = 1;
   bar_sync(kThreads);
 
+  // the FSAL cache, from the lanes that hold its components (ERK 0-5,
+  // ERKNG 0-2; an ERKNG k's velocity rows stay 0.0)
+  if (lane < (kNystrom ? 3 : 6)) fstate[(kFCache + lane) * B + ship] = cache_own;
   if (lane == 0) {
     fstate[kFT * B + ship] = t;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      fstate[(kFY + c) * B + ship] = y[c];
-      fstate[(kFCache + c) * B + ship] = cache[c];
-    }
+    for (int c = 0; c < 6; ++c) fstate[(kFY + c) * B + ship] = y[c];
     fstate[kFNextH * B + ship] = next_h;
     fstate[kFHTry * B + ship] = h_try;
     istate[kISeg * B + ship] = seg;
@@ -675,13 +758,13 @@ fleet_scan_kernel(Params prm, const double* __restrict__ tab, Eph e, Fleet fl,
 // shared memory a block may opt into there, less the kernel's static shared
 // memory, in slots.  Worked out, and opted into, once a device, so that a
 // launch makes no attribute call.
-template <int S, bool kNystrom>
+template <class T>
 cudaError_t window_slots(int dev, long long* slots) {
   static std::atomic<long long> cached[kMaxDevices];
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   long long cap = cached[dev].load();
   if (cap == 0) {
-    const auto kernel = fleet_scan_kernel<S, kNystrom>;
+    const auto kernel = fleet_scan_kernel<T>;
     int optin = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -699,17 +782,17 @@ cudaError_t window_slots(int dev, long long* slots) {
   return cudaSuccess;
 }
 
-template <int S, bool kNystrom>
-int launch(const Params& prm, const double* tab, const Eph& e, const Fleet& fl, double* fstate,
-           long long* istate, double* knots, int n_ships, int max_knots, int budget,
-           cudaStream_t stream) {
+template <class T>
+int launch(const Params& prm, const Eph& e, const Fleet& fl, double* fstate, long long* istate,
+           double* knots, int n_ships, int max_knots, int budget, cudaStream_t stream) {
   int dev = 0;
   long long cap = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = window_slots<S, kNystrom>(dev, &cap);
+  if (err == cudaSuccess) err = window_slots<T>(dev, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the windows: every stage at once where [3][S][N] fits, else G stages a
   // window, else one stage in chunks of C bodies
+  constexpr int S = T::kStages;
   const int n = e.n;
   int G = S, C = n;
   if (static_cast<long long>(S) * n > cap) {
@@ -721,8 +804,8 @@ int launch(const Params& prm, const double* tab, const Eph& e, const Fleet& fl, 
     }
   }
   const size_t bytes = static_cast<size_t>(G) * C * kSlotBytes;
-  fleet_scan_kernel<S, kNystrom><<<n_ships, kThreads, bytes, stream>>>(
-      prm, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget, G, C);
+  fleet_scan_kernel<T><<<n_ships, kThreads, bytes, stream>>>(
+      prm, e, fl, fstate, istate, knots, n_ships, max_knots, budget, G, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -730,14 +813,15 @@ int launch(const Params& prm, const double* tab, const Eph& e, const Fleet& fl, 
 
 extern "C" {
 
-// stages, nystrom: the tableau's (ERK: 6, 7, 9, 13, 16; ERKNG: 7; else -1);
-// tab: device (kTabLen,) f64 table; prm: host (8,) f64 h_init, h_max, fac,
-// fac_min, fac_max, 1/tol_pos, 1/tol_vel, -1/lower_order; the ephemeris (N bodies), the stacked timelines (B, S) and end_t (B,) on the
-// device; fstate (15, B) f64, istate (8, B) int64 and knots (B, max_knots +
-// 1, 7) f64 are read and advanced in place.  Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
-int eet_fleet_scan(int stages, int nystrom, const double* tab, const double* prm,
-                   long long n_max, int fsal, int burns, int frames,
+// instance: the tableau (EET_FLEET_TABLEAUX's order); prm: host (8,) f64
+// h_init, h_max, fac, fac_min, fac_max, 1/tol_pos, 1/tol_vel,
+// -1/lower_order; the ephemeris (N bodies), the stacked timelines (B, S) and
+// end_t (B,) on the device; fstate (15, B) f64, istate (8, B) int64 and knots
+// (B, max_knots + 1, 7) f64 are read and advanced in place.  Launches on
+// `stream` and returns cudaGetLastError() (0 = launched; -1 for arguments
+// out of range).
+int eet_fleet_scan(int instance, const double* prm, long long n_max, int fsal, int burns,
+                   int frames,
                    const double* mus, const double* starts, const double* intervals,
                    const long long* offsets, const long long* nsegs, const double* coeffs,
                    int n_bodies, const double* ends, const double* accels, const long long* kind,
@@ -749,28 +833,14 @@ int eet_fleet_scan(int stages, int nystrom, const double* tab, const double* prm
            frames};
   const Eph e{mus, starts, intervals, offsets, nsegs, coeffs, n_bodies};
   const Fleet fl{ends, accels, kind, body, end_t, n_seg};
-#define EET_FLEET_LAUNCH(S_, NY_)                                                        \
-  return launch<S_, NY_>(p, tab, e, fl, fstate, istate, knots, n_ships, max_knots, budget, \
-                         stream)
-  if (nystrom) {
-    if (stages == 7) EET_FLEET_LAUNCH(7, true);
-    return -1;
-  }
-  switch (stages) {
-    case 6:
-      EET_FLEET_LAUNCH(6, false);
-    case 7:
-      EET_FLEET_LAUNCH(7, false);
-    case 9:
-      EET_FLEET_LAUNCH(9, false);
-    case 13:
-      EET_FLEET_LAUNCH(13, false);
-    case 16:
-      EET_FLEET_LAUNCH(16, false);
-    default:
-      return -1;
-  }
-#undef EET_FLEET_LAUNCH
+  int i = 0;
+#define EET_FLEET_INSTANCE(NAME)                                                              \
+  if (instance == i++)                                                                        \
+    return launch<tableau::NAME>(p, e, fl, fstate, istate, knots, n_ships, max_knots, budget, \
+                                 stream);
+  EET_FLEET_TABLEAUX(EET_FLEET_INSTANCE)
+#undef EET_FLEET_INSTANCE
+  return -1;
 }
 
 }  // extern "C"

@@ -17,6 +17,11 @@ it runs :func:`fleet_scan` until every ship is done, one host read of the
 done flags a launch, and a failed build or launch raises.  The two agree
 bitwise on the card.
 
+The kernel is instanced by tableau, one instance for each of
+``integrators.ADAPTIVE_METHODS`` (``csrc/fleet_tableaux.cuh``): :func:`plan`
+takes the instance whose coefficients equal the tableau's bit for bit, and
+refuses a tableau that no instance matches.
+
 The ship state lives on the device between launches, one row a field:
 ``fstate`` (:data:`F_ROWS`, B) f64 and ``istate`` (:data:`I_ROWS`, B)
 int64 (:func:`start_state`); the knot buffer is the eager loop's (B,
@@ -25,12 +30,14 @@ max_knots + 1, 7).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _build
+from ..integrators import ADAPTIVE_METHODS, get
 from .cuda_nbody import _check_input, on_device
 
 F64, I64 = torch.float64, torch.int64
@@ -43,70 +50,63 @@ I_SEG, I_COUNT, I_REASON, I_N, I_IN_ADV, I_STALE, I_DONE, I_ITERS, I_ROWS = rang
 # the done flags (~20 ms at full_solar_system's ~19 us an iteration of
 # Verner87 on an H100).
 ITERATIONS_PER_LAUNCH = 1024
-# the kernel's instances (csrc/fleet_scan.cu): the stage counts of the
-# adaptive tableaux, ERK and ERKNG
-ERK_STAGES = (6, 7, 9, 13, 16)
-ERKNG_STAGES = (7,)
-MAX_STAGES = 16
-# the tableau table: c, a (ERKNG: ap), av, b (bp), bv, e (ep), ev
-TAB_LEN = MAX_STAGES + 2 * MAX_STAGES * MAX_STAGES + 4 * MAX_STAGES
 
 
 class Plan(NamedTuple):
     """A tableau's and a batch's kernel arguments, built once a call."""
 
-    nystrom: bool
-    stages: int
-    table: torch.Tensor     # (TAB_LEN,) f64 on the device
+    instance: int           # the tableau's in instances()
     prm: np.ndarray         # host f64: h_init, h_max, fac, fac_min, fac_max, 1/tol_pos,
     #                         1/tol_vel, -1/lower_order
     n_max: int
     fsal: bool
-    burns: bool             # any ship of the batch burns
-    frames: bool            # any burn is body-relative
+    burns: bool
+    frames: bool
 
 
-_TABLES: dict = {}
+def _bits(tab) -> np.ndarray:
+    """The tableau's coefficients as bits: c, a, b, e (ERKNG: c, ap, av, bp,
+    bv, ep, ev), each flattened, in turn."""
+    keys = ("c", "ap", "av", "bp", "bv", "ep", "ev") if hasattr(tab, "ap") else ("c", "a", "b", "e")
+    return np.concatenate([np.asarray(getattr(tab, k), dtype=np.float64).ravel()
+                           for k in keys]).view(np.uint64)
 
 
-def _table(tab) -> np.ndarray:
-    """The tableau's coefficients in the kernel's layout (zeros elsewhere)."""
-    nystrom = hasattr(tab, "ap")
-    s = tab.stages
-    out = np.zeros(TAB_LEN, dtype=np.float64)
-    m = MAX_STAGES
-    mats = (tab.ap, tab.av) if nystrom else (tab.a, np.zeros((s, s)))
-    vecs = (tab.bp, tab.bv, tab.ep, tab.ev) if nystrom else (tab.b, np.zeros(s), tab.e,
-                                                              np.zeros(s))
-    out[:s] = tab.c
-    for k, a in enumerate(mats):
-        block = out[m + k * m * m: m + (k + 1) * m * m].reshape(m, m)
-        block[:s, :s] = a
-    for k, v in enumerate(vecs):
-        base = m + 2 * m * m + k * m
-        out[base:base + s] = v
-    return out
+@functools.cache
+def instances() -> tuple[tuple[str, bool, int, np.ndarray], ...]:
+    """The kernel's instances, in the numbering of ``eet_fleet_scan``'s
+    ``instance`` (``EET_FLEET_TABLEAUX``, which ``tools/gen_fleet_tableaux.py``
+    writes in this order): (name, nystrom, stages, :func:`_bits`)."""
+    return tuple((name, hasattr(get(name), "ap"), get(name).stages, _bits(get(name)))
+                 for name in ADAPTIVE_METHODS)
 
 
-def plan(tab, params, burns: bool, frames: bool, device) -> Plan:
-    """The kernel's arguments for ``tab`` (an adaptive ERK or ERKNG tableau)
-    and ``params`` (``AdaptiveParams``); the table is uploaded once a
-    tableau and device."""
-    nystrom = hasattr(tab, "ap")
-    stages = tab.stages
-    if stages not in (ERKNG_STAGES if nystrom else ERK_STAGES):
-        raise ValueError(f"kernel 14 is built for {'ERKNG' if nystrom else 'ERK'} tableaux of "
-                         f"{ERKNG_STAGES if nystrom else ERK_STAGES} stages, not {tab.name} "
-                         f"({stages})")
-    key = (id(tab), str(device))
-    entry = _TABLES.get(key)
+def instance_of(tab) -> int:
+    """The instance whose coefficients equal ``tab``'s bit for bit (ERK or
+    ERKNG alike, the same stage count); ValueError for a tableau that none
+    matches."""
+    nystrom, bits = hasattr(tab, "ap"), _bits(tab)
+    for i, (_, ny, s, want) in enumerate(instances()):
+        if ny == nystrom and s == tab.stages and np.array_equal(want, bits):
+            return i
+    raise ValueError(f"kernel 14 has no instance for {tab.name}: its coefficients are none of "
+                     f"{', '.join(ADAPTIVE_METHODS)}, bit for bit")
+
+
+_INSTANCES: dict = {}
+
+
+def plan(tab, params, burns: bool, frames: bool) -> Plan:
+    """The kernel's arguments for ``tab`` (one of the adaptive ERK or ERKNG
+    tableaux it has an instance for) and ``params`` (``AdaptiveParams``);
+    the instance is found once a tableau."""
+    entry = _INSTANCES.get(id(tab))
     if entry is None:
-        entry = _TABLES[key] = (tab, torch.as_tensor(_table(tab), device=device))
+        entry = _INSTANCES[id(tab)] = (tab, instance_of(tab))
     prm = np.asarray([params.h_init, params.h_max, params.fac, params.fac_min, params.fac_max,
                       1.0 / params.tol_pos, 1.0 / params.tol_vel,
                       -1.0 / float(tab.lower_order)], dtype=np.float64)
-    return Plan(nystrom, stages, entry[1], prm, int(params.n_max), bool(tab.fsal), bool(burns),
-                bool(frames))
+    return Plan(entry[1], prm, int(params.n_max), bool(tab.fsal), bool(burns), bool(frames))
 
 
 def start_state(t: torch.Tensor, pos0: torch.Tensor, vel0: torch.Tensor, seg: torch.Tensor,
@@ -159,15 +159,14 @@ def fleet_scan(p: Plan, eph, tl, end_t: torch.Tensor, fstate: torch.Tensor,
     for name in ("offsets", "nsegs"):
         _check_input(name, getattr(eph, name), (n,), dev, I64)
     _check_input("coeffs", eph.coeffs, (eph.coeffs.shape[0], 9, 3), dev, F64)
-    _check_input("table", p.table, (TAB_LEN,), dev, F64)
     if knots.shape[1] < 2 or b < 1 or n_seg < 1:
         raise ValueError(f"kernel 14 needs a ship, a segment, a knot row and a sink: B = {b}, "
                          f"S = {n_seg}, K + 1 = {knots.shape[1]}")
     lib = _build.library()
     with on_device(dev) as stream:
         err = lib.eet_fleet_scan(
-            p.stages, int(p.nystrom), p.table.data_ptr(), p.prm.ctypes.data, p.n_max,
-            int(p.fsal), int(p.burns), int(p.frames), eph.mus.data_ptr(), eph.starts.data_ptr(),
+            p.instance, p.prm.ctypes.data, p.n_max, int(p.fsal), int(p.burns), int(p.frames),
+            eph.mus.data_ptr(), eph.starts.data_ptr(),
             eph.intervals.data_ptr(), eph.offsets.data_ptr(), eph.nsegs.data_ptr(),
             eph.coeffs.data_ptr(), n, tl.ends.data_ptr(), tl.accels.data_ptr(),
             tl.frame_kind.data_ptr(), tl.frame_body.data_ptr(), n_seg, end_t.data_ptr(),

@@ -451,7 +451,7 @@ def _propagate_batch_kernel(tab, eph, timelines, t0s, pos0s, vel0s, end_ts, para
 
     with tracing.span("spacecraft.fleet_start"):
         f = _fleet_start(eph, timelines, t0s, pos0s, vel0s, end_ts, max_knots)
-        plan = cuda_fleet.plan(tab, params, f.burns, f.frames, eph.coeffs.device)
+        plan = cuda_fleet.plan(tab, params, f.burns, f.frames)
         fstate, istate = cuda_fleet.start_state(f.t, f.pos0, f.vel0, f.seg, params.h_init)
     iterations = syncs = 0
     with tracing.span("spacecraft.fleet_loop"):

@@ -77,10 +77,10 @@ Profiles these loops with ``torch.profiler`` (CPU and CUDA activity):
   (built here with the port's flags) times dependent chains of each
   instruction kind with clock64 on one warp; the longest dependent path
   through one pass of the stage loop (the loop with the lane-sum trees) of
-  ``fleet_scan_kernel<13, ERK>``
-  (Verner87) in ``cuobjdump -sass`` of the checkout's built library, each
-  instruction weighted by its kind's latency (branches' both arms, inner
-  loops once), times the 13 stages, is the chain bound of an iteration;
+  ``fleet_scan_kernel<tableau::Verner87>`` in ``cuobjdump -sass`` of the
+  checkout's built library, each instruction weighted by its kind's latency
+  (branches' both arms, so the stage-state tree's longest row; inner loops
+  once), times the 13 stages, is the chain bound of an iteration;
   with M in the same call, its share of M's device µs an iteration.  Not
   profiled.
 
@@ -242,7 +242,7 @@ def geometry_sweep(torch, pos, mu, dev) -> list:
 PROBE_NAMES = ("DADD", "DMUL", "DFMA", "MUFU.RSQ64H", "ddiv", "dsqrt+DADD", "rsqrt_f64",
                "SHFL_double+DADD", "LDS.32", "LDS.64+F2I+LOP", "IMAD+LOP3")
 PROBE_REPS = 4096
-CHAIN_KERNEL, CHAIN_STAGES = "fleet_scan_kernelILi13ELb0E", 13
+CHAIN_KERNEL, CHAIN_STAGES = "fleet_scan_kernelIN7tableau8Verner87E", 13
 NO_WEIGHT = ("BRA", "BAR", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC", "NOP", "YIELD",
              "MEMBAR", "DEPBAR", "BPT")
 

@@ -2014,11 +2014,12 @@ def test_expansion_step_is_two_launches_on_card(cuda_device):
 
 
 # kernel 14: the fleet loop.  Ships near Earth on sun_earth_moon, each
-# tableau family with the burns that choose its RHS's form: TNB burns about
-# Earth on every ship, inertial burns on the odd ships, a coast, and TNB
-# burns on the odd ships.
+# tableau it has an instance for, with the burns that choose its RHS's form:
+# TNB burns about Earth on every ship, inertial burns on the odd ships, a
+# coast, and TNB burns on the odd ships.
 FLEET_CASES = {"Verner87": "relative", "Verner98": "inertial", "DormandPrince54": "coast",
-               "Fine45": "relative_odd"}
+               "Fine45": "relative_odd", "CashKarp45": "relative", "Fehlberg45": "inertial",
+               "Tsitouras75": "relative_odd", "DormandPrince87": "relative"}
 
 
 def _fleet_inputs(b, burns, span_s, device, n_seg_burns=1):
@@ -2065,7 +2066,8 @@ def _first_difference(a, b) -> str:
 def test_kernel14_matches_plain_on_card(cuda_device, method, b):
     """Kernel 14 against its plain version, the eager fleet loop, on the
     card: ts, pos, vel, count, reason and final segment bitwise, at B = 1,
-    4 and 64; kernel 14 alone launched, once a host read."""
+    4 and 64, the tableau's own instance taken;
+    kernel 14 alone launched, once a host read."""
     from ephemeris_explorer_tpu_torch import spacecraft
     from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
 
@@ -2073,6 +2075,7 @@ def test_kernel14_matches_plain_on_card(cuda_device, method, b):
                                                     cuda_device, n_seg_burns=2)
     params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
     tab = get(method)
+    assert cuda_fleet.instances()[cuda_fleet.plan(tab, params, True, True).instance][0] == method
     before = _every_launch()
     spacecraft.propagate_batch.syncs = 0
     k = spacecraft.propagate_batch(tab, packed, tl, t0s, p0s, v0s, ends, params, max_knots=1024)
@@ -2081,6 +2084,27 @@ def test_kernel14_matches_plain_on_card(cuda_device, method, b):
     p = spacecraft.propagate_batch_plain(tab, packed, tl, t0s, p0s, v0s, ends, params,
                                          max_knots=1024)
     assert (k.count > 10).all() and (k.reason == spacecraft.DONE_END).all()
+    assert all(torch.equal(x, y) for x, y in zip(k, p)), _first_difference(k, p)
+
+
+@pytest.mark.parametrize("method", ["DormandPrince54", "Fine45", "Verner87"])
+def test_kernel14_across_launches_matches_plain_on_card(cuda_device, method, monkeypatch):
+    """Five iterations a launch, so that the FSAL cache, the step sizes and
+    an unfinished advance go through device memory between launches (two
+    FSAL tableaux and Verner87): bitwise to the plain loop."""
+    from ephemeris_explorer_tpu_torch import spacecraft
+    from ephemeris_explorer_tpu_torch.integrators.adaptive import AdaptiveParams
+
+    monkeypatch.setattr(cuda_fleet, "ITERATIONS_PER_LAUNCH", 5)
+    packed, tl, t0s, p0s, v0s, ends = _fleet_inputs(4, FLEET_CASES[method], 6 * 3600.0,
+                                                    cuda_device, n_seg_burns=2)
+    params = AdaptiveParams(h_init=60.0, tol_pos=1e-3, tol_vel=1e-3)
+    tab = get(method)
+    spacecraft.propagate_batch.syncs = 0
+    k = spacecraft.propagate_batch(tab, packed, tl, t0s, p0s, v0s, ends, params, max_knots=1024)
+    assert spacecraft.propagate_batch.syncs > 10
+    p = spacecraft.propagate_batch_plain(tab, packed, tl, t0s, p0s, v0s, ends, params,
+                                         max_knots=1024)
     assert all(torch.equal(x, y) for x, y in zip(k, p)), _first_difference(k, p)
 
 

@@ -316,9 +316,9 @@ def test_kernel_route_reads_the_done_flags_once_a_launch(sem, monkeypatch):
 
     class FakeLib:
         def eet_fleet_scan(self, *a):
-            (stages, nystrom, _, prm, n_max, fsal, burns, frames, *_rest) = a
+            (instance, prm, n_max, fsal, burns, frames, *_rest) = a
             b, max_knots, budget = a[-4], a[-3], a[-2]
-            calls.append((stages, nystrom, n_max, fsal, burns, frames, b, max_knots, budget))
+            calls.append((instance, n_max, fsal, burns, frames, b, max_knots, budget))
             istate = np.ctypeslib.as_array(
                 (ctypes.c_longlong * (cuda_fleet.I_ROWS * b)).from_address(a[-6]))
             istate = istate.reshape(cuda_fleet.I_ROWS, b)
@@ -337,33 +337,36 @@ def test_kernel_route_reads_the_done_flags_once_a_launch(sem, monkeypatch):
         r = sc_._propagate_batch_kernel(tab, packed, tls, t0s, p0s, v0s, ends, params, 512)
     assert cuda_fleet.fleet_scan.launches - before == sc_.propagate_batch.syncs == 3
     assert sc_.propagate_batch.iterations == 2 * cuda_fleet.ITERATIONS_PER_LAUNCH + 7
-    assert calls[0] == (13, 0, params.n_max, 0, 1, 1, 3, 512, cuda_fleet.ITERATIONS_PER_LAUNCH)
+    verner87 = [name for name, *_ in cuda_fleet.instances()].index("Verner87")
+    assert calls[0] == (verner87, params.n_max, 0, 1, 1, 3, 512, cuda_fleet.ITERATIONS_PER_LAUNCH)
     assert r.ts.shape == (3, 512) and r.count.tolist() == [1, 1, 1]
     assert r.final_seg.tolist() == [0, 0, 0] and torch.isinf(r.ts[:, 1:]).all()
 
 
 def test_kernel_tables_and_start_state():
-    """The tableau table in the kernel's layout, the stage counts it is
-    built for, and the ships' start state."""
+    """The coefficients an instance is matched by, the tableaux the kernel
+    is built for, and the ships' start state."""
     v98, fine = get_method("Verner98"), get_method("Fine45")
-    t = cuda_fleet._table(v98)
-    m = cuda_fleet.MAX_STAGES
-    assert t.shape == (cuda_fleet.TAB_LEN,) and np.array_equal(t[:16], v98.c)
-    assert np.array_equal(t[m:m + m * m].reshape(m, m), v98.a)
-    assert np.array_equal(t[m + 2 * m * m:m + 2 * m * m + m], v98.b)
-    assert np.array_equal(t[m + 2 * m * m + 2 * m:m + 2 * m * m + 3 * m], v98.e)
-    t = cuda_fleet._table(fine)
+    bits = cuda_fleet._bits(v98).view(np.float64)
+    m = v98.stages
+    assert bits.shape == (m + m * m + 2 * m,) and np.array_equal(bits[:m], v98.c)
+    assert np.array_equal(bits[m:m + m * m].reshape(m, m), v98.a)
+    assert np.array_equal(bits[m + m * m:m + m * m + m], v98.b)
+    assert np.array_equal(bits[m + m * m + m:], v98.e)
+    bits = cuda_fleet._bits(fine).view(np.float64)
     s = fine.stages
-    assert np.array_equal(t[m + m * m:m + 2 * m * m].reshape(m, m)[:s, :s], fine.av)
-    assert np.array_equal(t[m + 2 * m * m + 3 * m:m + 2 * m * m + 3 * m + s], fine.ev)
+    assert bits.shape == (s + 2 * s * s + 4 * s,)
+    assert np.array_equal(bits[s + s * s:s + 2 * s * s].reshape(s, s), fine.av)
+    assert np.array_equal(bits[-s:], fine.ev)
     params = AdaptiveParams()
     from ephemeris_explorer_tpu_torch.integrators import methods
 
     for name in methods.ADAPTIVE_METHODS:
-        p = cuda_fleet.plan(get_method(name), params, True, False, torch.device(CPU))
-        assert p.stages == get_method(name).stages and p.fsal == get_method(name).fsal
-    with pytest.raises(ValueError, match="stages"):
-        cuda_fleet.plan(get_method("RK4"), params, False, False, torch.device(CPU))
+        p = cuda_fleet.plan(get_method(name), params, True, False)
+        assert cuda_fleet.instances()[p.instance][0] == name
+        assert p.fsal == get_method(name).fsal
+    with pytest.raises(ValueError, match="no instance"):
+        cuda_fleet.plan(get_method("RK4"), params, False, False)
     t0 = torch.tensor([1.0, 2.0], dtype=torch.float64)
     p0 = torch.arange(6, dtype=torch.float64).reshape(2, 3)
     f, i = cuda_fleet.start_state(t0, p0, -p0, torch.tensor([0, 3]), 60.0)

@@ -70,8 +70,9 @@ def build() -> ctypes.CDLL:
     from ephemeris_explorer_tpu_torch import _build
 
     text = stamped_source((_build.CSRC / "fleet_scan.cu").read_text(), PATCH.read_text())
-    flags = [*_build.NVCC_FLAGS, "-shared"]
-    digest = hashlib.sha256(text.encode() + " ".join(flags).encode()).hexdigest()[:16]
+    flags = [*_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC)]
+    headers = b"".join(p.read_bytes() for p in sorted(_build.CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text.encode() + headers + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = ROOT / "build" / "timeline" / digest / "libfleet_timeline.so"
     if not lib_path.exists():
         lib_path.parent.mkdir(parents=True, exist_ok=True)
